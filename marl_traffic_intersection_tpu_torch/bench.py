@@ -1,0 +1,119 @@
+"""Throughput of the port's main path: batched env-steps/s on one card.
+
+The counterpart of the repo's bench.py: 4096 envs x 4 agents, lidar on,
+auto-reset, zero actions, and the observation of every step consumed (its
+sum is accumulated on the card), so nothing is skipped. The value is the
+median of BENCH_REPEATS (default 5) timed blocks of BENCH_ITERS x
+BENCH_INNER steps, each block ended by ``torch.cuda.synchronize()``; the
+line also carries the per-block values, their spread, the card's name and
+its power limit. It refuses to run without a card.
+
+  python -m marl_traffic_intersection_tpu_torch.bench
+
+Env knobs: BENCH_NUM_ENVS, BENCH_NUM_AGENTS, BENCH_ITERS, BENCH_INNER,
+BENCH_REPEATS. BENCH_PROFILE=1 adds a second line from torch.profiler over
+BENCH_INNER steps after the timed blocks: the card's busy share of the
+window and the kernels that took the most device time per step.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import time
+
+import torch
+
+
+def card_line() -> str:
+    """``name, power.limit`` as nvidia-smi prints them for the first card."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       timeout=60, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def bench(num_envs: int = 4096, num_agents: int = 4, iters: int = 5, inner: int = 20,
+          repeats: int = 5, profile: bool = False):
+    """Per-block env-steps/s, one value per repeat, and the profile (or None)."""
+    from .core.env import EnvConfig, IntersectionEnv
+    from .envs.vector import VectorEnv
+
+    env = IntersectionEnv(EnvConfig(num_agents=num_agents, max_steps=10 ** 9), device="cuda")
+    venv = VectorEnv(env, num_envs=num_envs, seed=0)
+    state, obs = venv.reset()
+    actions = torch.zeros((num_envs, num_agents, 2), device=env.device)
+    chk = torch.zeros((), device=env.device)
+    for _ in range(inner):                       # warm-up: builds and caches
+        state, out = venv.step(state, actions)
+        chk += out.obs.sum()
+    torch.cuda.synchronize()
+    vals = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(iters * inner):
+            state, out = venv.step(state, actions)
+            chk += out.obs.sum()
+        torch.cuda.synchronize()
+        vals.append(num_envs * iters * inner / (time.perf_counter() - t0))
+    if not torch.isfinite(chk):
+        raise RuntimeError("non-finite observations")
+    prof = None
+    if profile:
+        prof = profile_steps(lambda: venv.step(state, actions)[1].obs.sum(), inner)
+    return vals, prof
+
+
+def profile_steps(step_fn, steps: int) -> dict:
+    """Device busy share and the top kernels of ``steps`` calls of ``step_fn``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step_fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    busy_us = sum(dev_us(e) for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    return {
+        "window_ms_per_step": wall_us / steps / 1e3,
+        "device_busy_ms_per_step": busy_us / steps / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+        "top_kernels": [{"name": e.key[:80], "ms_per_step": dev_us(e) / steps / 1e3,
+                         "launches_per_step": e.count / steps} for e in top],
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("bench: no CUDA device; the port's numbers come from the card only")
+    num_envs = int(os.environ.get("BENCH_NUM_ENVS", 4096))
+    num_agents = int(os.environ.get("BENCH_NUM_AGENTS", 4))
+    vals, prof = bench(num_envs, num_agents, int(os.environ.get("BENCH_ITERS", 5)),
+                       int(os.environ.get("BENCH_INNER", 20)),
+                       max(int(os.environ.get("BENCH_REPEATS", 5)), 1),
+                       profile=os.environ.get("BENCH_PROFILE", "0") == "1")
+    value = statistics.median(vals)
+    print(json.dumps({
+        "metric": f"batched env-steps/s ({num_envs} envs x {num_agents} agents, lidar on)",
+        "value": value,
+        "unit": "env-steps/s",
+        "repeats": vals,
+        "dispersion_pct": 100.0 * (max(vals) - min(vals)) / value,
+        "device": torch.cuda.get_device_name(0),
+        "card": card_line(),
+    }))
+    if prof is not None:
+        print(json.dumps({"profile": prof}))
+
+
+if __name__ == "__main__":
+    main()

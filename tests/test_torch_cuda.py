@@ -1,0 +1,108 @@
+"""Kernels of the port on the card, held against their plain versions.
+
+Marked ``cuda``: each test asks for a card and nvcc when it runs and skips
+without them (run with ``python -m pytest -m cuda tests/test_torch_cuda.py``
+on a machine with an H100). The kernels are built with nvcc at first use.
+"""
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
+from marl_traffic_intersection_tpu_torch.ops import libm, native
+from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    if shutil.which("nvcc") is None and not shutil.which("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("no nvcc")
+    return torch.device("cuda")
+
+
+def _bits(t):
+    return t.cpu().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("name", ["sinf", "cosf", "tanf", "atan2f", "hypotf"])
+def test_libm_kernels_match_the_cpu_transcription(card, name):
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.uniform(-7, 7, 1 << 20), [0.0, -0.0, np.pi / 2, -np.pi / 2,
+                                                     np.pi, -np.pi]]).astype(np.float32)
+    args = [x] if name in ("sinf", "cosf", "tanf") else [x[::-1].copy() * 50, x * 50]
+    got = getattr(libm, name)(*(torch.from_numpy(a).to(card) for a in args))
+    torch.cuda.synchronize()
+    assert (_bits(got) == libm.transcribed_np(name, *args).view(np.int32)).all()
+
+
+def _env_batch(rng, b, n, m):
+    sx = rng.uniform(-250, 1000, (b, n)).astype(np.float32)
+    sy = rng.uniform(-250, 1000, (b, n)).astype(np.float32)
+    sh = rng.uniform(-np.pi, np.pi, (b, n)).astype(np.float32)
+    ox = rng.uniform(-50, 800, (b, m)).astype(np.float32)
+    oy = rng.uniform(-50, 800, (b, m)).astype(np.float32)
+    oh = rng.uniform(-np.pi, np.pi, (b, m)).astype(np.float32)
+    om = rng.uniform(size=(b, m)) < 0.7
+    k = min(n, m)
+    ox[:, :k], oy[:, :k], oh[:, :k], om[:, :k] = sx[:, :k], sy[:, :k], sh[:, :k], True
+    return [torch.from_numpy(a) for a in (sx, sy, sh, ox, oy, oh, om)]
+
+
+@pytest.mark.parametrize("b,n,m", [(64, 4, 4), (32, 1, 36), (16, 8, 36), (8, 12, 12)])
+def test_k1_matches_the_plain_version(card, b, n, m):
+    args = [a.to(card) for a in _env_batch(np.random.RandomState(b + n + m), b, n, m)]
+    before = native.LAUNCHES["lidar_scan"]
+    got = lidar_scan(*args)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["lidar_scan"] == before + 1
+    assert (_bits(got) == _bits(lidar_scan_ref(*args))).all()
+
+
+def test_k1_rejects_what_it_does_not_take(card):
+    args = [a.to(card) for a in _env_batch(np.random.RandomState(1), 4, 2, 3)]
+    with pytest.raises(ValueError):
+        lidar_scan(*args[:6], args[6].int())
+    with pytest.raises(ValueError):
+        lidar_scan(args[0].t(), *args[1:])
+
+
+def test_env_on_the_card_equals_the_cpu(card):
+    import marl_traffic_intersection_tpu_torch as P
+    outs = {}
+    for dev in ("cpu", card):
+        env = P.IntersectionEnv(P.EnvConfig(num_agents=4, max_steps=40), device=dev)
+        pool = env.table.route_ids(P.default_ego_routes(12, 3))
+        rng = np.random.RandomState(4)
+
+        def sampler(k, rng=rng, pool=pool, dev=dev):
+            ids = np.stack([pool[rng.permutation(len(pool))[:4]] for _ in range(k)])
+            return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+        venv = P.VectorEnv(env, num_envs=8, route_sampler=sampler)
+        state, obs = venv.reset()
+        arng = np.random.RandomState(5)
+        hist = [obs.cpu()]
+        for _ in range(60):
+            a = torch.from_numpy(arng.uniform(-1, 1, (8, 4, 2)).astype(np.float32)).to(dev)
+            state, out = venv.step(state, a)
+            hist += [out.obs.cpu(), out.reward.cpu(), state.ego.x.cpu(), out.status.cpu()]
+        outs[str(dev)] = hist
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def test_division_by_a_constant_is_ieee_on_the_card(card):
+    """``libm.div`` divides by a device-resident constant: an IEEE division,
+    which PyTorch would turn into a reciprocal multiply for a Python scalar
+    (ROADMAP queue 3, H9)."""
+    x = np.random.RandomState(9).uniform(0, 1000, 1 << 20).astype(np.float32)
+    for c in (54.0, 750.0, 250.0, 0.6108652381980153):
+        got = libm.div(torch.from_numpy(x).to(card), c)
+        assert (_bits(got) == (x / np.float32(c)).view(np.int32)).all(), c
