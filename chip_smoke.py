@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch port on one NVIDIA card (H100).
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --k1-baseline DIR [DIR ...]   # also times DIR/lidar.cu
 
 Phases, one line each; any failure exits nonzero:
   1. device   the card's name, count, and nvidia-smi's name and power limit;
@@ -11,20 +12,30 @@ Phases, one line each; any failure exits nonzero:
               seeded inputs, bit-equal to the same header built for this
               machine's CPU (decides); against this machine's glibc (shown)
   4. K1       the lidar kernel against its plain PyTorch version on the card,
-              bit-equal, at the main path's 4096x4 shapes and on 36-slot fuzz
-              shapes; kernel, plain and bound times
+              bit-equal, at the main path's 4096x4 shapes, on 36-slot fuzz
+              shapes and on NaN/inf/-0.0/screen-edge poses; device times at
+              4096x4 M=4 and 512x8 M=36 (and, with --k1-baseline, those of
+              other builds of lidar.cu, in turns), plain and bound times
   5. main     VectorEnv(4096 envs x 4 agents) with a seeded 256-256 bf16
               ActorCriticMLP in the loop for 200 steps, through the kernels
               (launch counters); then 64 envs x 100 steps on the card and on
               the CPU with the same resets and actions, bit-equal
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
+
+Kernel times ("ms") are device times per launch: torch.profiler's self
+device time of the kernel over many launches. "event_ms" is the CUDA-event
+time of back-to-back calls of the wrapper, which includes the host's
+dispatch whenever a launch is shorter than the wrapper's Python call.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -55,6 +66,65 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, reps, match=None, tries=5):
+    """Mean device milliseconds per launch of the kernels whose name contains
+    ``match`` (all kernels if None), from the self device time torch.profiler
+    records over ``reps`` calls of ``fn``, each making one launch. The
+    profiler now and then loses a window's kernel records; such a window is
+    profiled again, and after ``tries`` the mean is over the launches kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = (0, 0.0)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+               and (match is None or match in e.key)]
+        got = (sum(e.count for e in evs),
+               sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                   for e in evs))
+        best = max(best, got)
+        if got[0] == reps:
+            break
+        phase("timing", f"the profiler recorded {got[0]} launches of {match!r} in {reps} calls")
+    launches, us = best
+    if not launches or us <= 0:
+        raise RuntimeError(f"the profiler recorded no device time for {match!r}")
+    return us / 1e3 / launches
+
+
+def ptxas_info(log):
+    """Per compiled entry (mangled name): registers, stack and spill bytes,
+    from nvcc's -Xptxas -v output."""
+    info, entry, props = {}, None, None
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", ln):
+            props = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", ln):
+            info.setdefault(props, {}).update(stack_bytes=int(m.group(1)),
+                                              spill_stores=int(m.group(2)),
+                                              spill_loads=int(m.group(3)))
+        elif (m := re.search(r"Used (\d+) registers", ln)) and entry:
+            info.setdefault(entry, {})["registers"] = int(m.group(1))
+    return info
+
+
+def kernel_regs(info, key):
+    """The ptxas numbers of the one entry whose mangled name contains ``key``."""
+    hits = [v for k, v in info.items() if key in k and "registers" in v]
+    if len(hits) != 1:
+        raise RuntimeError(f"ptxas output: {len(hits)} entries match {key!r}")
+    return {k: hits[0].get(k) for k in ("registers", "stack_bytes", "spill_stores",
+                                        "spill_loads")}
+
+
 def host_ms(fn, reps):
     fn()
     t0 = time.perf_counter()
@@ -71,6 +141,13 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k1-baseline", metavar="DIR", nargs="+", default=[],
+                    help="directories each holding another lidar.cu (and the headers it "
+                         "includes), e.g. csrc/ of an earlier commit; each kernel is checked "
+                         "and timed in turns with this one")
+    opts = ap.parse_args()
+
     # ---- 1. device
     if not torch.cuda.is_available():
         phase("device", "FAIL: torch.cuda.is_available() is false")
@@ -86,22 +163,40 @@ def main() -> int:
     # ---- 2. build (nothing is built ahead of time; all sources at once)
     from marl_traffic_intersection_tpu_torch.ops import native
     t0 = time.perf_counter()
+    baselines = {}            # other lidar.cu files, built beside ours with the same flags
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    for j, d in enumerate(opts.k1_baseline):
+        native.BUILD.mkdir(parents=True, exist_ok=True)
+        so = native.BUILD / f"lidar-baseline-{j}.so"
+        baselines[d] = (so, subprocess.Popen(
+            [nvcc, *native.NVCC_FLAGS, os.path.join(d, "lidar.cu"), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     sources = ["libm.cu", "lidar.cu", "libm_host.cpp"]
     started = [(s, native.start_build(s)) for s in sources]
     for s, st in started:
         native.finish_build(s, st)
+    ptxas = {}
     for s in sources:
-        secs, log = native.BUILD_LOG.get(s, (0.0, "(already built)"))
+        secs, log = native.BUILD_SECONDS.get(s, 0.0), native.build_log(s)
+        ptxas.update(ptxas_info(log))
         keep = [ln.strip() for ln in log.splitlines()
                 if re.search(r"registers|spill|bytes stack", ln)]
         phase("build", f"{s}: {secs:.1f} s; " + " | ".join(keep))
+    for d, (so, proc) in baselines.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            phase("build", f"FAIL: the baseline {d}/lidar.cu:\n{log}")
+            return 1
+        baselines[d] = (so, kernel_regs(ptxas_info(log), "lidar_kernel"))
+        phase("build", f"baseline {d}/lidar.cu: {baselines[d][1]}")
     phase("build", f"all built in {time.perf_counter() - t0:.1f} s")
 
     from marl_traffic_intersection_tpu_torch import (ActorCriticMLP, EnvConfig,
                                                      IntersectionEnv, VectorEnv)
-    from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
+    from marl_traffic_intersection_tpu_torch.core.lidar import REL_ANGLES, lidar_scan_ref
     from marl_traffic_intersection_tpu_torch.core.routes import default_ego_routes
-    from marl_traffic_intersection_tpu_torch.ops import libm
+    from marl_traffic_intersection_tpu_torch.ops import libm, lidar_cuda
+    from marl_traffic_intersection_tpu_torch.ops.lidar_cases import edge_inputs, fuzz_inputs
     from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
 
     kernels = {}
@@ -112,18 +207,22 @@ def main() -> int:
                        -2 * np.pi, np.pi / 4], np.float32)
     x = np.concatenate([rng.uniform(-7, 7, 1 << 22).astype(np.float32), axis])
     y = np.concatenate([rng.uniform(-7, 7, 1 << 22).astype(np.float32), axis[::-1]])
-    specs = {   # name: (args, bytes moved per element, f64 ops per element, library call, replaces)
-        "sinf": ((x,), 8, 14, torch.sin, "marl_traffic_intersection_tpu/ops/exact_trig.py:145"),
-        "cosf": ((x,), 8, 14, torch.cos, "marl_traffic_intersection_tpu/ops/exact_trig.py:162"),
-        "tanf": ((x,), 8, 40, torch.tan, "marl_traffic_intersection_tpu/ops/exact_trig.py:299"),
+    specs = {   # name: (args, bytes moved per element, f64 ops per element, library call,
+                #        replaces, the kernel's functor in libm.cu)
+        "sinf": ((x,), 8, 14, torch.sin, "marl_traffic_intersection_tpu/ops/exact_trig.py:145",
+                 "SinF"),
+        "cosf": ((x,), 8, 14, torch.cos, "marl_traffic_intersection_tpu/ops/exact_trig.py:162",
+                 "CosF"),
+        "tanf": ((x,), 8, 40, torch.tan, "marl_traffic_intersection_tpu/ops/exact_trig.py:299",
+                 "TanF"),
         "atan2f": ((y, x), 12, 40, torch.atan2,
-                   "marl_traffic_intersection_tpu/ops/exact_libm.py:279"),
+                   "marl_traffic_intersection_tpu/ops/exact_libm.py:279", "Atan2F"),
         "hypotf": ((x * 100, y * 100), 12, 6, torch.hypot,
-                   "marl_traffic_intersection_tpu/ops/exact_libm.py:188"),
+                   "marl_traffic_intersection_tpu/ops/exact_libm.py:188", "HypotF"),
     }
     glibc = os.confstr("CS_GNU_LIBC_VERSION")
     bshape = (4096, 4)    # the env's (B, N) at the main path
-    for name, (args, bpe, ope, lib_fn, replaces) in specs.items():
+    for name, (args, bpe, ope, lib_fn, replaces, functor) in specs.items():
         fn = getattr(libm, name)
         dargs = [torch.from_numpy(a).to(dev) for a in args]
         got = fn(*dargs).cpu().numpy()
@@ -140,35 +239,23 @@ def main() -> int:
         kernels[name] = dict(
             name=name, route="cuda", source=SRC + "libm.cu", replaces=replaces,
             max_abs_err=float(np.abs(got.astype(np.float64) - want).max()),
-            ms=cuda_ms(lambda: fn(*small), 200),
+            ms=device_ms(lambda: fn(*small), 200, functor),
+            event_ms=cuda_ms(lambda: fn(*small), 200),
             plain_ms=host_ms(lambda: fn(*small_cpu), 20),
             bound_ms=1e3 * max(n * bpe / HBM_BYTES_PER_S, n * ope / F64_OPS_PER_S),
             bound_by="bytes" if n * bpe / HBM_BYTES_PER_S >= n * ope / F64_OPS_PER_S
             else "operations",
-            library_ms=cuda_ms(lambda: lib_fn(*small), 200))
+            library_ms=device_ms(lambda: lib_fn(*small), 200),
+            **kernel_regs(ptxas, functor))
+        k = kernels[name]
         phase("libm", f"{name}: bit-equal to the CPU build on {got.size} inputs; "
-                      f"{n_glibc} differ from this machine's {glibc} (shown only); "
-                      f"{kernels[name]['ms']:.4f} ms at {bshape}")
+                      f"{n_glibc} differ from this machine's {glibc} (shown only); at {bshape}: "
+                      f"device {k['ms']:.5f} ms (events, with the host: {k['event_ms']:.4f}); "
+                      f"torch.{lib_fn.__name__}, not glibc-exact, device {k['library_ms']:.5f} ms")
 
     # ---- 4. K1
-    def lidar_inputs(seed, b, n, m, axis_aligned=False, lattice=False):
-        r = np.random.RandomState(seed)
-        sx = r.uniform(-250, 1000, (b, n)).astype(np.float32)
-        sy = r.uniform(-250, 1000, (b, n)).astype(np.float32)
-        sh = (r.choice(np.asarray([0, np.pi / 2, -np.pi / 2, np.pi, -np.pi], np.float32), (b, n))
-              if axis_aligned else r.uniform(-np.pi, np.pi, (b, n)).astype(np.float32))
-        ox = r.uniform(-50, 800, (b, m)).astype(np.float32)
-        oy = r.uniform(-50, 800, (b, m)).astype(np.float32)
-        oh = r.uniform(-np.pi, np.pi, (b, m)).astype(np.float32)
-        if lattice:
-            ox, oy = np.round(ox), np.round(oy)
-            oh = r.choice(np.asarray([0.0, np.pi / 2], np.float32), (b, m))
-            sx, sy = np.round(sx), np.round(sy)
-        om = r.uniform(size=(b, m)) < r.uniform(0.1, 1.0, (b, 1))
-        k = min(n, m)     # the egos are in the obstacle set, as in the env
-        ox[:, :k], oy[:, :k], oh[:, :k], om[:, :k] = sx[:, :k], sy[:, :k], sh[:, :k], True
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in (sx, sy, sh, ox, oy, oh, om)]
+    def on_card(arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
     # main-path shapes and poses: the egos of a VectorEnv after a few steps
     env = IntersectionEnv(EnvConfig(num_agents=4, max_steps=10 ** 9), device=dev)
@@ -180,37 +267,97 @@ def main() -> int:
     main_args = [e.x, e.y, e.heading, e.x, e.y, e.heading,
                  torch.ones_like(e.alive)]
     cases = {"main 4096x4 M=4": main_args,
-             "random 2048x1 M=36": lidar_inputs(2, 2048, 1, 36),
-             "axis-aligned 2048x1 M=36": lidar_inputs(3, 2048, 1, 36, axis_aligned=True),
-             "lattice 2048x1 M=36": lidar_inputs(4, 2048, 1, 36, True, True),
-             "env 512x8 M=36": lidar_inputs(5, 512, 8, 36)}
+             "random 2048x1 M=36": on_card(fuzz_inputs(2, 2048, 1, 36)),
+             "axis-aligned 2048x1 M=36": on_card(fuzz_inputs(3, 2048, 1, 36, axis_aligned=True)),
+             "lattice 2048x1 M=36": on_card(fuzz_inputs(4, 2048, 1, 36, True, True)),
+             "env 512x8 M=36": on_card(fuzz_inputs(5, 512, 8, 36)),
+             "edges 1536x2 M=12": on_card(edge_inputs())}
     for label, args in cases.items():
         got = lidar_scan(*args)
         ref, samples = lidar_scan_ref(*args, return_samples=True)
         torch.cuda.synchronize()
         if not bits_equal(got, ref):
-            diff = int((got != ref).sum())
+            diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
             phase("K1", f"FAIL {label}: {diff} rays differ from lidar_scan_ref")
             return 1
         phase("K1", f"{label}: bit-equal to the plain version "
                     f"({got.numel()} rays, {int(samples.sum())} samples marched)")
-    B, N, M = 4096, 4, 4
-    ref, samples = lidar_scan_ref(*main_args, return_samples=True)
-    ops = float(samples.sum()) * (20 + 4 * M)
-    nbytes = 3 * B * N * 4 + 3 * B * M * 4 + B * M + B * N * 96 * 4
+
+    def baseline_scan(so):
+        """A wrapper of another build of lidar.cu with the same launcher."""
+        lib = ctypes.CDLL(str(so))
+        lib.lidar_scan_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.lidar_scan_launch.restype = ctypes.c_int
+
+        def scan(sx, sy, sh, ox, oy, oh, om):
+            out = torch.empty((*sx.shape, 96), dtype=torch.float32, device=dev)
+            rc = lib.lidar_scan_launch(
+                *map(native.ptr, (sx, sy, sh, ox, oy, oh, om, libm.table(REL_ANGLES, dev), out)),
+                *sx.shape, ox.shape[1], 3, native.stream_of(out))
+            native.check(rc, lib, "baseline lidar_scan")
+            return out
+        return scan
+
+    timed = {"4096x4 M=4": main_args, "512x8 M=36": cases["env 512x8 M=36"]}
+    rows = {}
+    for label, args in timed.items():
+        (B, N), M = args[0].shape, args[3].shape[1]
+        ref, samples = lidar_scan_ref(*args, return_samples=True)
+        # what these inputs need: ~20 ops per marched sample (sample, screen,
+        # road) and 4 compares per ray and obstacle (the cull)
+        ops = float(samples.sum()) * 20 + B * N * 96 * M * 4
+        nbytes = 3 * B * N * 4 + 3 * B * M * 4 + B * M + B * N * 96 * 4
+        variants = {"lidar.cu": lambda: lidar_scan(*args)}
+        for d, (so, _) in baselines.items():
+            scan = baseline_scan(so)
+            if not bits_equal(scan(*args), ref):
+                phase("K1", f"FAIL: the baseline {d} differs from the plain version at {label}")
+                return 1
+            variants[d] = lambda scan=scan: scan(*args)
+        # a warp is 32 adjacent rays of one agent and runs as long as its
+        # longest ray: the share of its lanes' sample steps that do work
+        warps = samples.reshape(-1, 32).double()
+        lanes = float(warps.sum() / (32 * warps.max(1).values).sum())
+        times = {v: [] for v in variants}
+        for v in list(variants) + list(variants)[::-1]:     # in turns: a, b, c, c, b, a
+            times[v].append(device_ms(variants[v], 50, "lidar_kernel"))
+        rows[label] = dict(
+            ms={v: sum(t) / len(t) for v, t in times.items()},
+            bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
+            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+            else "operations", blocks_per_sm=lidar_cuda.blocks_per_sm(M), lane_efficiency=lanes)
+        r = rows[label]
+        phase("K1", f"{label}: device ms per launch, each the mean of two turns {times}; "
+                    f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {ops:.4e} ops, {nbytes} "
+                    f"bytes, {int(samples.sum())} samples marched; lane efficiency {lanes:.4f}); "
+                    f"{r['blocks_per_sm']} blocks of 96 threads per SM; card {card}")
+    main_row, m36_row = rows["4096x4 M=4"], rows["512x8 M=36"]
+    ref = lidar_scan_ref(*main_args)
     kernels["lidar_scan"] = dict(
         name="lidar_scan", route="cuda", source=SRC + "lidar.cu",
         replaces="marl_traffic_intersection_tpu/ops/lidar_pallas.py:155",
         max_abs_err=float((lidar_scan(*main_args) - ref).abs().max()),
-        ms=cuda_ms(lambda: lidar_scan(*main_args), 50),
+        ms=main_row["ms"]["lidar.cu"],
+        event_ms=cuda_ms(lambda: lidar_scan(*main_args), 50),
         plain_ms=cuda_ms(lambda: lidar_scan_ref(*main_args), 5),
-        bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
-        bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
-        library_ms=None)
+        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"], library_ms=None,
+        ms_m36=m36_row["ms"]["lidar.cu"], bound_ms_m36=m36_row["bound_ms"],
+        plain_ms_m36=cuda_ms(lambda: lidar_scan_ref(*timed["512x8 M=36"]), 3),
+        blocks_per_sm=main_row["blocks_per_sm"], blocks_per_sm_m36=m36_row["blocks_per_sm"],
+        lane_efficiency=main_row["lane_efficiency"],
+        lane_efficiency_m36=m36_row["lane_efficiency"],
+        **kernel_regs(ptxas, "lidar_kernel"))
+    if baselines:
+        kernels["lidar_scan"]["baselines"] = [
+            dict(source=d, ms=main_row["ms"][d], ms_m36=m36_row["ms"][d], **regs)
+            for d, (_, regs) in baselines.items()]
     k = kernels["lidar_scan"]
-    phase("K1", f"4096x4 M=4: kernel {k['ms']:.4f} ms, plain {k['plain_ms']:.3f} ms, "
-                f"bound {k['bound_ms']:.4f} ms ({k['bound_by']}: {ops:.3e} ops, "
-                f"{nbytes} bytes); launch counter {native.LAUNCHES['lidar_scan']}; card {card}")
+    phase("K1", f"4096x4 M=4: device {k['ms']:.5f} ms (events, with the host: "
+                f"{k['event_ms']:.4f}), plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.5f} "
+                f"ms; 512x8 M=36: device {k['ms_m36']:.5f} ms, plain {k['plain_ms_m36']:.3f} ms, "
+                f"bound {k['bound_ms_m36']:.5f} ms; {k['registers']} registers, "
+                f"{k['spill_stores']} B spilled; card {card}")
 
     # ---- 5. main path: 4096 envs x 4 agents, bf16 MLP in the loop
     torch.manual_seed(0)

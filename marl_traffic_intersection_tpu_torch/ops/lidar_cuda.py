@@ -25,6 +25,8 @@ def _lib() -> ctypes.CDLL:
         lib.lidar_scan_launch.argtypes = [p] * 9 + [i, i, i, i, p]
         lib.lidar_scan_launch.restype = ctypes.c_int
         lib.lidar_max_obstacles.argtypes, lib.lidar_max_obstacles.restype = [], ctypes.c_int
+        lib.lidar_blocks_per_sm.argtypes = [i, ctypes.POINTER(i)]
+        lib.lidar_blocks_per_sm.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -60,3 +62,13 @@ def lidar_scan(sx, sy, sh, ox, oy, oh, om, num_lanes: int = 3) -> torch.Tensor:
     native.check(rc, lib, "lidar_scan")
     native.LAUNCHES["lidar_scan"] += 1
     return out
+
+
+def blocks_per_sm(num_obstacles: int) -> int:
+    """How many of the kernel's blocks one SM holds at once with
+    ``num_obstacles`` obstacles (needs the card)."""
+    lib = _lib()
+    blocks = ctypes.c_int()
+    native.check(lib.lidar_blocks_per_sm(num_obstacles, ctypes.byref(blocks)), lib,
+                 "lidar_blocks_per_sm")
+    return blocks.value

@@ -3,12 +3,14 @@
 Nothing is built ahead of time. Each source in ``csrc/`` becomes one shared
 library with a plain C interface under the package's ``_build/`` directory
 (listed in .gitignore), named by a digest of the sources and flags, so a
-changed header rebuilds and an unchanged one is reused:
+changed header rebuilds and an unchanged one is reused; the compiler's
+output (ptxas's registers and spills for a .cu) is kept beside it:
 
   * ``*.cu``  -> nvcc for sm_90a (Hopper), contraction off, IEEE divide and
     sqrt: the kernels must round every product before its add, like the
     reference simulator does;
-  * ``*.cpp`` -> g++ with ``-ffp-contract=off`` (the CPU side of ops/libm.py).
+  * ``*.cpp`` -> g++ with ``-ffp-contract=off`` (the CPU side of ops/libm.py,
+    and K1's ray body built for the CPU tests, csrc/lidar_host.cpp).
 
 ``LAUNCHES`` counts kernel launches by name. Each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show which kernels its
@@ -35,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 GXX_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC")
 
 LAUNCHES: collections.Counter = collections.Counter()
-BUILD_LOG: dict = {}      # source name -> (seconds, compiler stderr)
+BUILD_SECONDS: dict = {}      # source name -> seconds, for the builds of this process
 
 _LIBS: dict = {}
 
@@ -68,7 +70,7 @@ def start_build(source: str):
     ``(process, tmp_path, out_path, t0)`` or None; finish with ``finish_build``.
     Several builds started together compile in parallel."""
     out = library_path(source)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
@@ -83,11 +85,17 @@ def finish_build(source: str, started) -> None:
         return
     proc, tmp, out, t0 = started
     stdout, stderr = proc.communicate()
-    secs = time.perf_counter() - t0
-    BUILD_LOG[source] = (secs, stdout + stderr)
+    BUILD_SECONDS[source] = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"building {source} failed:\n{stdout}{stderr}")
+    out.with_suffix(".log").write_text(stdout + stderr)
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+
+
+def build_log(source: str) -> str:
+    """The compiler's output for ``source``'s library, built or not by this
+    process."""
+    return library_path(source).with_suffix(".log").read_text()
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -12,6 +12,7 @@ import torch
 
 from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
 from marl_traffic_intersection_tpu_torch.ops import libm, native
+from marl_traffic_intersection_tpu_torch.ops.lidar_cases import edge_inputs, fuzz_inputs
 from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
 
 pytestmark = pytest.mark.cuda
@@ -64,12 +65,26 @@ def test_k1_matches_the_plain_version(card, b, n, m):
     assert (_bits(got) == _bits(lidar_scan_ref(*args))).all()
 
 
+@pytest.mark.parametrize("case", ["edges", "fuzz 64 slots"])
+def test_k1_edge_poses_and_64_slots_match_the_plain_version(card, case):
+    """NaN, +-inf, -0.0 and screen-edge poses, and the upper half of the
+    64-bit obstacle mask."""
+    arrays = edge_inputs(n=8) if case == "edges" else fuzz_inputs(3, 64, 8, 64)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in arrays]
+    got = lidar_scan(*args)
+    torch.cuda.synchronize()
+    assert (_bits(got) == _bits(lidar_scan_ref(*args))).all()
+
+
 def test_k1_rejects_what_it_does_not_take(card):
     args = [a.to(card) for a in _env_batch(np.random.RandomState(1), 4, 2, 3)]
     with pytest.raises(ValueError):
         lidar_scan(*args[:6], args[6].int())
     with pytest.raises(ValueError):
         lidar_scan(args[0].t(), *args[1:])
+    many = [a.to(card) for a in _env_batch(np.random.RandomState(2), 4, 2, 65)]
+    with pytest.raises(ValueError):
+        lidar_scan(*many)
 
 
 def test_env_on_the_card_equals_the_cpu(card):
