@@ -20,6 +20,20 @@ Phases, one line each; any failure exits nonzero:
               ActorCriticMLP in the loop for 200 steps, through the kernels
               (launch counters); then 64 envs x 100 steps on the card and on
               the CPU with the same resets and actions, bit-equal
+  6. train    the train entry point (PPO) at 4096 x 4, rollout 64, 4 epochs x
+              4 minibatches, bf16 MLP: 3 updates with a checkpoint, then one
+              more by auto-resume; finite losses, 48 optimizer steps, K1
+              launched 64 x 3 times and every kernel at least once (launch
+              counters); env-steps/s, the rollout/update split and peak
+              memory; then the same entry point at the same size for 4
+              updates each of the MLP with --norm-reward, conv, central and
+              attention: finite losses, K1 launched 64 x 4 times, the split,
+              peak memory; each run's last update profiled (device busy
+              share, launches, top kernels; Chrome traces in chiprun_out/);
+              last, one update of a fixed 64 x 4 x 16 CPU trajectory on the
+              card and on the CPU in float32, parameters within 1e-5 and
+              Adam's moments within 1e-4 of their largest, the update moving
+              the parameters more than ten times that
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
 
@@ -27,17 +41,23 @@ Kernel times ("ms") are device times per launch: torch.profiler's self
 device time of the kernel over many launches. "event_ms" is the CUDA-event
 time of back-to-back calls of the wrapper, which includes the host's
 dispatch whenever a launch is shorter than the wrapper's Python call.
+"launch_floor_ms" (libm rows) is the device time of the smallest launch, a
+torch.add of two 1-element tensors. "launches" counts the main phase's
+launches, "launches_train" those of the train phase's 3 updates.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import io
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -221,6 +241,10 @@ def main() -> int:
                    "marl_traffic_intersection_tpu/ops/exact_libm.py:188", "HypotF"),
     }
     glibc = os.confstr("CS_GNU_LIBC_VERSION")
+    one = torch.ones(1, device=dev)
+    floor_ms = device_ms(lambda: torch.add(one, one), 200)
+    phase("libm", f"launch floor: torch.add of two 1-element tensors, device {floor_ms:.7f} ms; "
+                  f"card {card}")
     bshape = (4096, 4)    # the env's (B, N) at the main path
     for name, (args, bpe, ope, lib_fn, replaces, functor) in specs.items():
         fn = getattr(libm, name)
@@ -246,6 +270,7 @@ def main() -> int:
             bound_by="bytes" if n * bpe / HBM_BYTES_PER_S >= n * ope / F64_OPS_PER_S
             else "operations",
             library_ms=device_ms(lambda: lib_fn(*small), 200),
+            launch_floor_ms=floor_ms,
             **kernel_regs(ptxas, functor))
         k = kernels[name]
         phase("libm", f"{name}: bit-equal to the CPU build on {got.size} inputs; "
@@ -422,9 +447,173 @@ def main() -> int:
         return 1
     phase("main", f"64x4, 100 steps: card run bit-equal to the CPU run ({len(runs['cpu'])} tensors)")
 
+    if train_phase(dev, card, kernels):
+        return 1
+
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+def run_train(argv):
+    """``train.main(argv)``, its output echoed; returns its JSON log lines and
+    its profile line (None without --profile)."""
+    from marl_traffic_intersection_tpu_torch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(argv)
+    logs, prof = [], None
+    for ln in buf.getvalue().splitlines():
+        phase("train", ln)
+        if ln.startswith("{"):
+            line = json.loads(ln)
+            if "profile" in line:
+                prof = line["profile"]
+            elif "update" in line:
+                logs.append(line)
+    return logs, prof
+
+
+def losses_finite(logs):
+    return bool(logs) and all(np.isfinite([ln[k] for k in ("pg_loss", "v_loss", "entropy",
+                                                            "approx_kl")]).all() for ln in logs)
+
+
+def split_line(name, logs, prof, peak, card):
+    """The rollout/update split of the logged updates after the first (warm-up)
+    and before a profiled one, peak memory and the profile, as one phase line."""
+    timed = logs[1:-1] if prof else logs[1:]
+    roll = [ln["rollout_s"] for ln in timed]
+    upd = [ln["update_s"] for ln in timed]
+    steps = TRAIN_B * TRAIN_T * len(timed)
+    top = [(k["name"][:60], round(k["ms_per_step"], 2), k["launches_per_step"])
+           for k in (prof or {}).pop("top_kernels", [])]
+    phase("train", f"{name}: rollout s {roll}, update (GAE + 16 minibatches) s {upd}; "
+                   f"{steps / sum(roll + upd):.1f} env-steps/s; peak memory "
+                   f"{peak / 2**20:.1f} MiB; profile of the last update {json.dumps(prof)}; "
+                   f"top kernels (name, ms, launches): {top}; card {card}")
+
+
+TRAIN_B, TRAIN_N, TRAIN_T = 4096, 4, 64
+TRACES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+
+
+def train_phase(dev, card, kernels) -> int:
+    """Phase 6 (see the module docstring); 1 on failure."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.models import make_model
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner, Transition
+    from marl_traffic_intersection_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    B, N, T = TRAIN_B, TRAIN_N, TRAIN_T
+    size = ["--num-envs", str(B), "--agents", str(N), "--rollout-len", str(T), "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = size + ["--checkpoint", os.path.join(tmp, "run")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        t0 = time.perf_counter()
+        logs, _ = run_train(argv + ["--updates", "3"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        saved = restore_checkpoint(argv[-1])
+        if len(logs) != 3 or not losses_finite(logs):
+            phase("train", f"FAIL: {len(logs)} log lines, losses finite: {losses_finite(logs)}")
+            return 1
+        if saved["update_count"] != 3 * 16 or launches.get("lidar_scan", 0) != 3 * T:
+            phase("train", f"FAIL: update_count {saved['update_count']} (want 48), K1 launched "
+                           f"{launches.get('lidar_scan', 0)} times (want {3 * T})")
+            return 1
+        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        if missing:
+            phase("train", f"FAIL: kernels not launched in training: {missing}")
+            return 1
+        for k in kernels:
+            kernels[k]["launches_train"] = launches[k]
+        phase("train", f"{B}x{N}, rollout {T}, 3 updates in {secs:.3f} s (builds warm): "
+                       f"env-steps/s by update {[ln['env_steps_per_s'] for ln in logs]}, "
+                       f"launches {launches}")
+        split_line("mlp", logs, None, peak, card)
+        resumed, prof = run_train(argv + ["--updates", "4", "--profile",
+                                          os.path.join(TRACES, "train_mlp.json.gz")])
+        saved = restore_checkpoint(argv[-1])
+        if ([ln["update"] for ln in resumed] != [3] or not losses_finite(resumed)
+                or saved["update"] != 4 or saved["update_count"] != 4 * 16):
+            phase("train", f"FAIL: the auto-resumed run logged {resumed}, saved update "
+                           f"{saved['update']} count {saved['update_count']}")
+            return 1
+        phase("train", f"auto-resume ran update 3 from the checkpoint of update 3; its "
+                       f"profile {json.dumps(prof)}")
+
+    # every other family (and the reward normaliser) through the same entry point
+    for kind, extra, trace in (("mlp", ["--norm-reward"], "mlp_norm"), ("conv", [], "conv"),
+                               ("central", [], "central"), ("attention", [], "attention")):
+        name = " ".join([kind] + extra)
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        logs, prof = run_train(size + ["--updates", "4", "--model", kind, "--seed", "1", *extra,
+                                       "--profile", os.path.join(TRACES, f"train_{trace}.json.gz")])
+        peak = torch.cuda.max_memory_allocated()
+        k1 = native.LAUNCHES.get("lidar_scan", 0)
+        if len(logs) != 4 or not losses_finite(logs) or k1 != 4 * T:
+            phase("train", f"FAIL: {name}: {len(logs)} log lines, losses finite "
+                           f"{losses_finite(logs)}, K1 launched {k1} times (want {4 * T})")
+            return 1
+        split_line(name, logs, prof, peak, card)
+        torch.cuda.empty_cache()
+
+    # one update of one fixed CPU trajectory, on the CPU and on the card, in
+    # float32: cuBLAS and the CPU sum in other orders, so the parameters are
+    # held within PARAM_TOL and Adam's moments within MOMENT_TOL of their
+    # largest (tests/test_torch_ppo.py measured 9e-8 and 1.1e-6 against
+    # optax); the update must move the parameters far beyond PARAM_TOL, or
+    # the comparison could not tell it from no update at all
+    PARAM_TOL, MOMENT_TOL = 1e-5, 1e-4
+    cfg16 = PPOConfig(rollout_len=16)
+    f32 = dict(compute_dtype=torch.float32)
+    cpu_venv = VectorEnv(IntersectionEnv(EnvConfig(num_agents=4), device="cpu"), num_envs=64,
+                         seed=3)
+    g = torch.Generator().manual_seed(9)
+    perms = [torch.randperm(16, generator=g) for _ in range(cfg16.update_epochs)]
+    updated = {}
+    for d in ("cpu", dev):
+        queue = [p.to(d) for p in perms]
+        ven = cpu_venv if d == "cpu" else VectorEnv(
+            IntersectionEnv(EnvConfig(num_agents=4), device=d), num_envs=64)
+        lrn = PPOLearner(ven, make_model("mlp", seed=5, **f32), cfg16, seed=4,
+                         perm_fn=lambda n, q=queue: q.pop(0))
+        t_s = lrn.init()
+        if d == "cpu":
+            s0, o0 = cpu_venv.reset()
+            _, _, traj_cpu, lv = lrn._rollout(t_s.model, s0, o0)
+            advs_cpu, rets_cpu = lrn._gae(traj_cpu, lv)
+        tr = Transition(*(t.to(d) for t in traj_cpu))
+        t_s, _ = lrn._update(t_s, tr, advs_cpu.to(d), rets_cpu.to(d))
+        st = t_s.optimizer.state
+        updated[str(d)] = {k: [v.detach().cpu()] + [st[v][m].cpu() for m in ("exp_avg",
+                                                                              "exp_avg_sq")]
+                           for k, v in t_s.model.named_parameters()}
+    cpu, gpu = updated["cpu"], updated[str(dev)]
+    steps = cfg16.update_epochs * cfg16.num_minibatches
+    diff = max(float((cpu[k][0] - gpu[k][0]).abs().max()) for k in cpu)
+    over = sum(int(((cpu[k][0] - gpu[k][0]).abs() > PARAM_TOL).sum()) for k in cpu)
+    mdiff = max(float((cpu[k][i] - gpu[k][i]).abs().max() / cpu[k][i].abs().max())
+                for k in cpu for i in (1, 2))
+    moved = max(float((cpu[k][0] - v.detach()).abs().max())
+                for k, v in make_model("mlp", seed=5, **f32).named_parameters())
+    msg = (f"64x4x16 CPU trajectory, one update ({steps} Adam steps, float32): card vs CPU "
+           f"parameters within {diff:.3g} ({over} elements over {PARAM_TOL}), Adam moments "
+           f"within {mdiff:.3g} of their largest (tolerance {MOMENT_TOL}); the update moved the "
+           f"parameters up to {moved:.3g}")
+    if not (diff <= PARAM_TOL and mdiff <= MOMENT_TOL and moved > 10 * PARAM_TOL):
+        phase("train", "FAIL: " + msg)
+        return 1
+    phase("train", msg)
     return 0
 
 

@@ -25,6 +25,8 @@ import time
 
 import torch
 
+from .utils.profiling import profile_steps
+
 
 def card_line() -> str:
     """``name, power.limit`` as nvidia-smi prints them for the first card."""
@@ -63,33 +65,6 @@ def bench(num_envs: int = 4096, num_agents: int = 4, iters: int = 5, inner: int 
     if profile:
         prof = profile_steps(lambda: venv.step(state, actions)[1].obs.sum(), inner)
     return vals, prof
-
-
-def profile_steps(step_fn, steps: int) -> dict:
-    """Device busy share and the top kernels of ``steps`` calls of ``step_fn``."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step_fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-    busy_us = sum(dev_us(e) for e in kernels)
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    return {
-        "window_ms_per_step": wall_us / steps / 1e3,
-        "device_busy_ms_per_step": busy_us / steps / 1e3,
-        "device_busy_share": busy_us / wall_us,
-        "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
-        "top_kernels": [{"name": e.key[:80], "ms_per_step": dev_us(e) / steps / 1e3,
-                         "launches_per_step": e.count / steps} for e in top],
-    }
 
 
 def main():

@@ -6,19 +6,65 @@ Both directions go through numpy, so the port imports nothing of JAX:
     (``torso_0/kernel``, ..., ``pi_mean``, ``vf``, ``log_std``), given as
     nested dicts of numpy arrays, into the port's module. Flax kernels are
     (in, out); ``nn.Linear`` weights are (out, in).
+  * ``conv_params_from_flax``, ``attention_params_from_flax`` and
+    ``central_params_from_flax`` do the same for the other families;
+    ``params_from_flax(kind, ...)`` picks one by family name. Conv kernels
+    go from flax's (k, in, out) to (out, in, k); attention's query/key/value
+    kernels from (D, H, Dh) to (H*Dh, D) and its ``out`` kernel from
+    (H, Dh, D) to (D, H*Dh). Every converter raises ``ValueError`` on a
+    shape that does not fit the module.
   * ``env_state_from_numpy`` / ``env_state_to_numpy`` convert an ``EnvState``
     given as the JAX package's leaves (``ego``'s fields, ``lidar``,
     ``step_count``) so that a lockstep can start from a JAX state.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .core.env import EgoState, EnvState
+from .models import make_model
 from .models.actor_critic import ActorCriticMLP
+from .models.attention import SceneTransformerPolicy
+from .models.central import CentralizedActorCritic
+from .models.conv import LidarConvPolicy
+
+# (flax path, the port's parameter, how a flax array becomes its value)
+_Entry = Tuple[str, torch.nn.Parameter, Callable[[np.ndarray], np.ndarray]]
+
+
+def _same(a):
+    return a
+
+
+def _transposed(a):
+    return a.T
+
+
+def _dense(name: str, lin: torch.nn.Linear) -> list:
+    """A flax Dense's kernel (in, out) and bias as an nn.Linear's."""
+    return [(f"{name}/kernel", lin.weight, _transposed), (f"{name}/bias", lin.bias, _same)]
+
+
+def _load(params: Mapping, entries: Iterable[_Entry], model: torch.nn.Module) -> torch.nn.Module:
+    """Copy each flax leaf into its parameter; raise ValueError on a missing
+    leaf or a shape that does not fit."""
+    p = params.get("params", params)
+    with torch.no_grad():
+        for path, param, convert in entries:
+            leaf = p
+            for k in path.split("/"):
+                if k not in leaf:
+                    raise ValueError(f"{path}: not in the flax tree")
+                leaf = leaf[k]
+            value = np.array(convert(np.asarray(leaf, np.float32)), order="C")
+            if value.shape != tuple(param.shape):
+                raise ValueError(f"{path}: flax {np.shape(leaf)} gives {value.shape}, "
+                                 f"the module holds {tuple(param.shape)}")
+            param.copy_(torch.from_numpy(value))
+    return model
 
 
 def mlp_params_from_flax(params: Mapping, model: Optional[ActorCriticMLP] = None
@@ -34,19 +80,85 @@ def mlp_params_from_flax(params: Mapping, model: Optional[ActorCriticMLP] = None
             i += 1
         model = ActorCriticMLP(obs_dim=np.shape(p["torso_0"]["kernel"])[0], hidden=hidden,
                                act_dim=np.shape(p["pi_mean"]["kernel"])[1])
-    layers = [(f"torso_{i}", m) for i, m in enumerate(model.torso)]
-    layers += [("pi_mean", model.pi_mean), ("vf", model.vf)]
-    with torch.no_grad():
-        for name, lin in layers:
-            kernel = np.asarray(p[name]["kernel"], np.float32)
-            bias = np.asarray(p[name]["bias"], np.float32)
-            if kernel.shape != (lin.in_features, lin.out_features):
-                raise ValueError(f"{name}: kernel {kernel.shape} does not fit "
-                                 f"({lin.in_features}, {lin.out_features})")
-            lin.weight.copy_(torch.from_numpy(kernel.T.copy()))
-            lin.bias.copy_(torch.from_numpy(bias))
-        model.log_std.copy_(torch.from_numpy(np.asarray(p["log_std"], np.float32)))
-    return model
+    entries = []
+    for i, lin in enumerate(model.torso):
+        entries += _dense(f"torso_{i}", lin)
+    entries += _dense("pi_mean", model.pi_mean) + _dense("vf", model.vf)
+    entries.append(("log_std", model.log_std, _same))
+    return _load(params, entries, model)
+
+
+def conv_params_from_flax(params: Mapping, model: Optional[LidarConvPolicy] = None
+                          ) -> LidarConvPolicy:
+    """A flax LidarConvPolicy tree into ``model`` (default: a new bf16 one)."""
+    model = model if model is not None else LidarConvPolicy()
+    entries = []
+    for i, conv in enumerate(model.ray_conv):
+        entries += [(f"ray_conv_{i}/kernel", conv.weight, lambda a: a.transpose(2, 1, 0)),
+                    (f"ray_conv_{i}/bias", conv.bias, _same)]
+    for name in ("state_proj", "fuse", "pi_mean", "vf"):
+        entries += _dense(name, getattr(model, name))
+    entries.append(("log_std", model.log_std, _same))
+    return _load(params, entries, model)
+
+
+def attention_params_from_flax(params: Mapping, model: Optional[SceneTransformerPolicy] = None
+                               ) -> SceneTransformerPolicy:
+    """A flax SceneTransformerPolicy tree into ``model`` (default: a new bf16 one)."""
+    model = model if model is not None else SceneTransformerPolicy()
+
+    def qkv_kernel(a):          # (D, H, Dh) -> (H*Dh, D)
+        return a.reshape(a.shape[0], -1).T
+
+    def out_kernel(a):          # (H, Dh, D) -> (D, H*Dh)
+        return a.reshape(-1, a.shape[-1]).T
+
+    def layer_norm(name, ln):
+        return [(f"{name}/scale", ln.weight, _same), (f"{name}/bias", ln.bias, _same)]
+
+    entries = []
+    for name in ("embed_ego", "embed_neighbor", "embed_lidar", "pi_mean", "vf"):
+        entries += _dense(name, getattr(model, name))
+    entries += [("pos", model.pos, _same), ("log_std", model.log_std, _same)]
+    entries += layer_norm("LayerNorm_0", model.ln_f)
+    for i, blk in enumerate(model.blocks):
+        b = f"block_{i}"
+        mha = f"{b}/MultiHeadDotProductAttention_0"
+        for proj in ("query", "key", "value"):
+            lin = getattr(blk.attn, proj)
+            entries += [(f"{mha}/{proj}/kernel", lin.weight, qkv_kernel),
+                        (f"{mha}/{proj}/bias", lin.bias, lambda a: a.reshape(-1))]
+        entries += [(f"{mha}/out/kernel", blk.attn.out.weight, out_kernel),
+                    (f"{mha}/out/bias", blk.attn.out.bias, _same)]
+        entries += layer_norm(f"{b}/LayerNorm_0", blk.ln_0) + layer_norm(f"{b}/LayerNorm_1",
+                                                                           blk.ln_1)
+        entries += _dense(f"{b}/Dense_0", blk.dense_0) + _dense(f"{b}/Dense_1", blk.dense_1)
+    return _load(params, entries, model)
+
+
+def central_params_from_flax(params: Mapping, model: Optional[CentralizedActorCritic] = None
+                             ) -> CentralizedActorCritic:
+    """A flax CentralizedActorCritic tree into ``model`` (default: a new bf16 one)."""
+    model = model if model is not None else CentralizedActorCritic()
+    entries = []
+    for i, lin in enumerate(model.torso):
+        entries += _dense(f"torso_{i}", lin)
+    for name in ("pi_mean", "critic_embed", "critic_joint", "vf"):
+        entries += _dense(name, getattr(model, name))
+    entries.append(("log_std", model.log_std, _same))
+    return _load(params, entries, model)
+
+
+FROM_FLAX = {"mlp": mlp_params_from_flax, "conv": conv_params_from_flax,
+             "attention": attention_params_from_flax, "central": central_params_from_flax}
+
+
+def params_from_flax(kind: str, params: Mapping, model: Optional[torch.nn.Module] = None
+                     ) -> torch.nn.Module:
+    """The flax tree of family ``kind`` in the port's module of that family."""
+    if model is None:
+        model = make_model(kind)
+    return FROM_FLAX[kind](params, model)
 
 
 def env_state_from_numpy(ego: Mapping, lidar, step_count, device="cpu",

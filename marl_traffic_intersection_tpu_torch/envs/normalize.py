@@ -1,0 +1,83 @@
+"""Return-based reward normalization wrapper over VectorEnv.
+
+Counterpart of marl_traffic_intersection_tpu/envs/normalize.py. Rewards are
+divided by the running standard deviation of the discounted return (Gym's
+``NormalizeReward``), which rescales the dense progress terms and the sparse
+±10 terminal bonuses alike without recentering. Statistics are kept per env:
+every leaf of ``NormState`` has the env axis first. ``count`` is int32, as in
+the JAX package; the scale is ``rsqrt(var + eps)``, the identity until
+``warmup`` samples, and the normalized reward is clipped to ±``clip``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..core.constants import DT_DEFAULT
+from ..core.env import EnvState
+from .vector import VectorEnv
+
+
+class NormState(NamedTuple):
+    env_state: EnvState      # the wrapped env's state (B-leading)
+    ret: torch.Tensor        # (B, N) f32 discounted return accumulator
+    count: torch.Tensor      # (B,) int32 samples seen per env
+    mean: torch.Tensor       # (B,) f32 running mean of returns
+    m2: torch.Tensor         # (B,) f32 running sum of squared deviations
+
+
+class RewardNormVecEnv:
+    """Drop-in VectorEnv: the same reset/step surface, normalized
+    ``out.reward``; statuses, dones and obs pass through."""
+
+    def __init__(self, venv: VectorEnv, gamma: float = 0.99, clip: float = 10.0,
+                 eps: float = 1e-8, warmup: int = 64):
+        self.venv = venv
+        self.env = venv.env
+        self.num_envs = venv.num_envs
+        self.gamma = float(gamma)
+        self.clip = float(clip)
+        self.eps = float(eps)
+        self.warmup = int(warmup)
+
+    @property
+    def generator(self) -> torch.Generator:
+        """The wrapped VectorEnv's route generator."""
+        return self.venv.generator
+
+    def reset(self) -> Tuple[NormState, torch.Tensor]:
+        env_state, obs = self.venv.reset()
+        b, n, dev = self.num_envs, self.env.config.num_agents, self.env.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        return NormState(env_state=env_state, ret=torch.zeros((b, n), **f32),
+                         count=torch.zeros((b,), dtype=torch.int32, device=dev),
+                         mean=torch.zeros((b,), **f32), m2=torch.zeros((b,), **f32)), obs
+
+    def step(self, state: NormState, actions: torch.Tensor, dt: float = DT_DEFAULT):
+        env_state, out = self.venv.step(state.env_state, actions, dt=dt)
+        reward = out.reward                                    # (B, N)
+        n = reward.shape[-1]
+
+        # discounted-return accumulator, cut at per-agent done and at episode ends
+        done = out.done | (out.terminated | out.truncated)[:, None]
+        ret = self.gamma * state.ret * (1.0 - done.float()) + reward
+
+        # per-env Welford merge of this tick's N return samples
+        batch_mean = ret.mean(-1)
+        batch_m2 = ((ret - batch_mean[:, None]) ** 2).sum(-1)
+        count_new = state.count + n
+        cf = count_new.float()
+        delta = batch_mean - state.mean
+        mean_new = state.mean + delta * n / cf
+        m2_new = state.m2 + batch_m2 + delta ** 2 * state.count.float() * n / cf
+
+        var = m2_new / torch.clamp(cf - 1.0, min=1.0)
+        scale = torch.rsqrt(var + self.eps)
+        # identity until enough samples: early over-estimates of the scale
+        # would blow the first updates up
+        scale = torch.where(count_new >= self.warmup, scale, 1.0)
+        norm_reward = torch.clamp(reward * scale[:, None], -self.clip, self.clip)
+        new_state = NormState(env_state=env_state, ret=ret, count=count_new,
+                              mean=mean_new, m2=m2_new)
+        return new_state, out._replace(reward=norm_reward)

@@ -8,10 +8,15 @@ reward, and env-steps/s.
   python -m marl_traffic_intersection_tpu_torch.evaluate --config 3 --vector 4096
   python -m marl_traffic_intersection_tpu_torch.evaluate --policy mlp --seed 0
 
-Policies: ``random`` (uniform actions) or ``mlp`` (the 256-256 ActorCriticMLP,
-weights made from ``--seed``; loading the shipped checkpoints is the
-checkpoint bridge, ROADMAP queue 1 item 10). BASELINE configs 2 and 4 need
-NPC traffic and raise.
+  python -m marl_traffic_intersection_tpu_torch.evaluate --policy checkpoint \
+      --checkpoint runs/ppo --model mlp
+
+Policies: ``random`` (uniform actions), ``mlp`` (the 256-256 ActorCriticMLP,
+weights made from ``--seed``), or ``checkpoint``: the deterministic action
+``tanh(mean)`` of a policy of family ``--model`` trained by the port's
+``train`` and read from its ``--checkpoint`` directory (loading the JAX
+package's shipped orbax checkpoints is the checkpoint bridge, ROADMAP queue 1
+item 10). BASELINE configs 2 and 4 need NPC traffic and raise.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ from .core.constants import (STATUS_ALIVE, STATUS_CRASH_CAR, STATUS_CRASH_LINE,
 from .core.env import EnvConfig, IntersectionEnv
 from .device import resolve_device
 from .envs.vector import VectorEnv
+from .models import MODEL_FAMILIES, make_model
 from .models.actor_critic import ActorCriticMLP
+from .utils.checkpoint import restore_checkpoint
 
 CONFIGS = {
     1: dict(num_agents=1, traffic_flow=False, routes=[("IN_6", "OUT_2")]),
@@ -39,7 +46,8 @@ CONFIGS = {
 
 
 def evaluate(config: int = 1, num_envs: int = 1024, max_steps: int = 2000,
-             policy: str = "random", seed: int = 0, device=None) -> dict:
+             policy: str = "random", seed: int = 0, device=None,
+             checkpoint: str = None, model_kind: str = "mlp") -> dict:
     dev = resolve_device(device)
     c = dict(CONFIGS[config])
     routes = c.pop("routes")
@@ -52,6 +60,12 @@ def evaluate(config: int = 1, num_envs: int = 1024, max_steps: int = 2000,
         torch.manual_seed(seed)
         model = ActorCriticMLP().to(dev)
         act_fn = model.act
+    elif policy == "checkpoint":
+        if checkpoint is None:
+            raise ValueError("policy 'checkpoint' needs a checkpoint directory")
+        model = make_model(model_kind).to(dev)
+        model.load_state_dict(restore_checkpoint(checkpoint)["model"])
+        act_fn = torch.no_grad()(lambda obs: torch.tanh(model(obs)[0]))
     elif policy == "random":
         act_fn = lambda obs: torch.rand((num_envs, n, 2), generator=gen, device=dev) * 2 - 1
     else:
@@ -108,12 +122,16 @@ def main(argv=None):
     ap.add_argument("--config", type=int, default=1, choices=sorted(CONFIGS))
     ap.add_argument("--vector", type=int, default=1024, metavar="B")
     ap.add_argument("--max-steps", type=int, default=2000)
-    ap.add_argument("--policy", choices=["random", "mlp"], default="random")
+    ap.add_argument("--policy", choices=["random", "mlp", "checkpoint"], default="random")
+    ap.add_argument("--checkpoint", default=None,
+                    help="with --policy checkpoint: a directory saved by the port's train")
+    ap.add_argument("--model", default="mlp", choices=sorted(MODEL_FAMILIES),
+                    help="with --policy checkpoint: the checkpoint's model family")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' to ask for it")
     args = ap.parse_args(argv)
     print(json.dumps(evaluate(args.config, args.vector, args.max_steps, args.policy,
-                              args.seed, args.device)))
+                              args.seed, args.device, args.checkpoint, args.model)))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,227 @@
+"""PPO learner over the batched env: rollout, GAE and the clipped-PPO update.
+
+Counterpart of marl_traffic_intersection_tpu/parallel/ppo.py, run eagerly on
+one device. One ``train_step`` is a rollout of ``rollout_len`` env steps with
+the policy in the loop (the env step launches kernel K1 and the libm
+kernels), GAE backwards over the trajectory, then ``update_epochs`` epochs of
+``num_minibatches`` clipped-PPO minibatches. Every agent is an independent
+decision-maker under one shared policy; per-agent rewards come from the env.
+
+Where a straight transcription of the JAX code goes wrong, this one follows
+the JAX package:
+
+  - minibatches slice the time axis after one permutation per epoch; the
+    permutation comes from ``perm_fn`` (default ``torch.randperm`` on the
+    learner's generator), the action noise from ``noise_fn`` (default a
+    normal draw on another generator), so tests can replay jax.random draws;
+  - advantages are normalized with the population std (numpy's ddof = 0);
+  - the gradient clip is optax's ``clip_by_global_norm``: gradients pass
+    unchanged when the global norm is below ``max_grad_norm`` and become
+    ``(g / norm) * max_grad_norm`` otherwise, decided on the device;
+  - the optimizer is ``torch.optim.Adam(lr, eps=1e-8)``, optax's ``adam``;
+  - ``update_count`` ticks per minibatch and is a host integer, so the
+    critic-warmup gate costs no device sync;
+  - GAE rounds each operation on its own, in float32;
+  - metrics stay on the device, averaged over the minibatches, until the
+    caller reads them.
+
+The trajectory buffers are allocated once per rollout at their full (T, ...)
+size and filled in place.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..core.constants import (STATUS_CRASH_CAR, STATUS_CRASH_LINE, STATUS_CRASH_WALL,
+                              STATUS_SUCCESS)
+from ..models.actor_critic import draw_noise, logp_and_entropy, sample_action
+
+LOSS_METRICS = ("pg_loss", "v_loss", "entropy", "approx_kl")
+
+
+@dataclass(frozen=True)
+class PPOConfig:
+    rollout_len: int = 128
+    update_epochs: int = 4
+    num_minibatches: int = 4   # minibatches slice the time axis
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    vf_coef: float = 0.5
+    ent_coef: float = 0.01
+    lr: float = 3e-4
+    max_grad_norm: float = 0.5
+    critic_warmup: int = 0     # train steps with the actor loss masked
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    update_count: int = 0      # minibatch updates so far
+
+
+class Transition(NamedTuple):
+    obs: torch.Tensor          # (T, B, N, 127)
+    raw_action: torch.Tensor   # (T, B, N, 2) pre-tanh
+    logp: torch.Tensor         # (T, B, N)
+    value: torch.Tensor        # (T, B, N)
+    reward: torch.Tensor       # (T, B, N)
+    ep_done: torch.Tensor      # (T, B) episode boundary (terminated | truncated)
+    agent_done: torch.Tensor   # (T, B, N) per-agent done (crash -> respawn, success)
+    status: torch.Tensor       # (T, B, N) int32 STATUS_*
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on ``grads`` in place; returns the norm."""
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+    return norm
+
+
+class PPOLearner:
+    def __init__(self, vec_env, model: nn.Module, cfg: PPOConfig = PPOConfig(), seed: int = 0,
+                 noise_fn: Optional[Callable[[torch.Size], torch.Tensor]] = None,
+                 perm_fn: Optional[Callable[[int], torch.Tensor]] = None):
+        self.env = vec_env
+        self.model = model
+        self.cfg = cfg
+        self.device = vec_env.env.device
+        self.noise_generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.perm_generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.noise_fn = noise_fn or (lambda shape: draw_noise(shape, self.noise_generator))
+        self.perm_fn = perm_fn or (lambda n: torch.randperm(
+            n, generator=self.perm_generator, device=self.device))
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def init(self) -> TrainState:
+        """The model on the env's device and a fresh Adam over its parameters."""
+        model = self.model.to(self.device)
+        return TrainState(model, torch.optim.Adam(model.parameters(), lr=self.cfg.lr, eps=1e-8))
+
+    # ------------------------------------------------------------------ rollout
+    @torch.no_grad()
+    def _rollout(self, model: nn.Module, env_state, obs: torch.Tensor):
+        T = self.cfg.rollout_len
+        b, n = obs.shape[:2]
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.empty((T, *shape), dtype=dtype, device=obs.device)
+
+        traj = Transition(obs=buf(*obs.shape), raw_action=buf(b, n, 2), logp=buf(b, n),
+                          value=buf(b, n), reward=buf(b, n), ep_done=buf(b, dtype=torch.bool),
+                          agent_done=buf(b, n, dtype=torch.bool),
+                          status=buf(b, n, dtype=torch.int32))
+        for t in range(T):
+            mean, log_std, value = model(obs)
+            action, raw = sample_action(mean, log_std, self.noise_fn(mean.shape))
+            logp, _ = logp_and_entropy(mean, log_std, raw)
+            env_state, out = self.env.step(env_state, action)
+            for dst, src in zip(traj, (obs, raw, logp, value, out.reward,
+                                       out.terminated | out.truncated, out.done, out.status)):
+                dst[t] = src
+            obs = out.obs
+        last_value = model(obs)[2]
+        return env_state, obs, traj, last_value
+
+    # ---------------------------------------------------------------------- gae
+    def _gae(self, traj: Transition, last_value: torch.Tensor):
+        cfg = self.cfg
+        # the bootstrap is cut at episode ends and at per-agent done events:
+        # a crash respawns the agent, which starts a new life
+        done = (traj.ep_done[..., None] | traj.agent_done).float()        # (T, B, N)
+        advs = torch.empty_like(traj.reward)
+        gae = torch.zeros_like(last_value)
+        next_value = last_value
+        for t in reversed(range(traj.reward.shape[0])):
+            nonterm = 1.0 - done[t]
+            delta = traj.reward[t] + cfg.gamma * next_value * nonterm - traj.value[t]
+            gae = delta + cfg.gamma * cfg.gae_lambda * nonterm * gae
+            advs[t] = gae
+            next_value = traj.value[t]
+        return advs, advs + traj.value
+
+    # ------------------------------------------------------------------- update
+    def _loss(self, model: nn.Module, batch, actor_on: float = 1.0):
+        cfg = self.cfg
+        obs, raw, old_logp, adv, ret, old_value = batch
+        mean, log_std, value = model(obs)
+        logp, entropy = logp_and_entropy(mean, log_std, raw)
+        ratio = torch.exp(logp - old_logp)
+        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        pg1 = ratio * adv_n
+        pg2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv_n
+        pg_loss = -torch.minimum(pg1, pg2).mean()
+        v_clip = old_value + torch.clamp(value - old_value, -cfg.clip_eps, cfg.clip_eps)
+        v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).mean()
+        ent = entropy.mean()
+        total = actor_on * (pg_loss - cfg.ent_coef * ent) + cfg.vf_coef * v_loss
+        metrics = dict(pg_loss=pg_loss, v_loss=v_loss, entropy=ent,
+                       approx_kl=(old_logp - logp).mean())
+        return total, metrics
+
+    def _update(self, ts: TrainState, traj: Transition, advs: torch.Tensor, rets: torch.Tensor):
+        cfg = self.cfg
+        T, mb = cfg.rollout_len, cfg.num_minibatches
+        if T % mb:
+            raise ValueError(f"rollout_len {T} is not a multiple of num_minibatches {mb}")
+        size = T // mb
+        data = (traj.obs, traj.raw_action, traj.logp, advs, rets, traj.value)
+        per_step = cfg.update_epochs * mb
+        params = [p for p in ts.model.parameters() if p.requires_grad]
+        sums = torch.zeros(len(LOSS_METRICS), device=advs.device)
+        for _ in range(cfg.update_epochs):
+            perm = self.perm_fn(T)          # shuffle time only
+            for i in range(mb):
+                idx = perm[i * size:(i + 1) * size]
+                actor_on = 1.0 if ts.update_count >= cfg.critic_warmup * per_step else 0.0
+                loss, metrics = self._loss(ts.model, tuple(x[idx] for x in data), actor_on)
+                ts.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                clip_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
+                ts.optimizer.step()
+                ts.update_count += 1
+                sums += torch.stack([metrics[k].detach() for k in LOSS_METRICS])
+        return ts, dict(zip(LOSS_METRICS, (sums / per_step).unbind()))
+
+    # --------------------------------------------------------------- train step
+    def train_step(self, ts: TrainState, env_state, obs: torch.Tensor,
+                   split: Optional[Dict[str, float]] = None):
+        """One rollout + PPO update: ``(ts, env_state, obs, metrics)``, the
+        metrics 0-d tensors on the device. Given a ``split`` dict, it waits
+        for the device before, between and after the two halves and stores
+        their seconds there as ``rollout_s`` and ``update_s`` (GAE included)."""
+        if split is not None:
+            self._sync()
+            t0 = time.perf_counter()
+        env_state, obs, traj, last_value = self._rollout(ts.model, env_state, obs)
+        if split is not None:
+            self._sync()
+            t1 = time.perf_counter()
+            split["rollout_s"] = t1 - t0
+        advs, rets = self._gae(traj, last_value)
+        ts, metrics = self._update(ts, traj, advs, rets)
+        if split is not None:
+            self._sync()
+            split["update_s"] = time.perf_counter() - t1
+        st = traj.status
+        crash = (st == STATUS_CRASH_CAR) | (st == STATUS_CRASH_WALL) | (st == STATUS_CRASH_LINE)
+        metrics.update(mean_reward=traj.reward.mean(), mean_value=traj.value.mean(),
+                       success_rate=(st == STATUS_SUCCESS).float().mean(),
+                       crash_rate=crash.float().mean())
+        return ts, env_state, obs, metrics
+
+
+def read_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """The metrics as Python floats, with one copy from the device."""
+    return dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))

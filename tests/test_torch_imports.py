@@ -13,19 +13,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED = """
 import sys
-sys.modules["jax"] = None
-sys.modules["marl_traffic_intersection_tpu"] = None
+for name in ("jax", "flax", "optax", "orbax", "marl_traffic_intersection_tpu"):
+    sys.modules[name] = None
 import torch
 import marl_traffic_intersection_tpu_torch as P
-from marl_traffic_intersection_tpu_torch import convert, evaluate, bench  # noqa: F401
+from marl_traffic_intersection_tpu_torch import convert, evaluate, bench, train  # noqa: F401
+from marl_traffic_intersection_tpu_torch import models, parallel, utils  # noqa: F401
+from marl_traffic_intersection_tpu_torch.envs.normalize import RewardNormVecEnv
+from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner
 env = P.IntersectionEnv(P.EnvConfig(num_agents=4), device="cpu")
 venv = P.VectorEnv(env, num_envs=3)
 state, obs = venv.reset()
 for _ in range(3):
     state, out = venv.step(state, torch.zeros(3, 4, 2))
 assert out.obs.shape == (3, 4, 127) and bool(torch.isfinite(out.obs).all())
-assert not any(m == "jax" or m.startswith("jax.") or m.startswith("marl_traffic_intersection_tpu.")
-               for m in sys.modules if sys.modules[m] is not None)
+learner = PPOLearner(RewardNormVecEnv(venv), models.make_model("mlp"),
+                     PPOConfig(rollout_len=4, update_epochs=1, num_minibatches=2))
+ts = learner.init()
+state, obs = learner.env.reset()
+ts, state, obs, metrics = learner.train_step(ts, state, obs)
+assert ts.update_count == 2 and all(bool(torch.isfinite(v)) for v in metrics.values())
+blocked = ("jax", "flax", "optax", "orbax", "marl_traffic_intersection_tpu")
+assert not any(m.split(".")[0] in blocked for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """
 
@@ -42,6 +51,11 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         P.IntersectionEnv(P.EnvConfig())
     assert P.IntersectionEnv(P.EnvConfig(), device="cpu").device.type == "cpu"
+    from marl_traffic_intersection_tpu_torch import train
+    small = ["--num-envs", "2", "--agents", "1", "--rollout-len", "4", "--updates", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(small)
+    train.main(small + ["--device", "cpu"])
 
 
 @pytest.mark.parametrize("kw", [dict(traffic_flow=True), dict(exact_trig=True),
