@@ -34,6 +34,22 @@ Phases, one line each; any failure exits nonzero:
               card and on the CPU in float32, parameters within 1e-5 and
               Adam's moments within 1e-4 of their largest, the update moving
               the parameters more than ten times that
+  7. traffic  BASELINE config 4 (8 agents, density 1.0, 32 NPC slots, exact
+              NPC mode) at 4096 envs for 200 steps with the bf16 MLP in the
+              loop, spawns drawn on the card: finite obs, NPCs spawned, K1
+              launched once per step at M = 40 and every kernel at least once;
+              env-steps/s, launches and device reads per step, the NPC loops'
+              rounds, alive slots per env (batch max and mean), peak memory,
+              a profile (busy share, top kernels); then 100 steps in the fast
+              NPC mode. K1 on that run's obstacle sets bit-equal to the plain
+              version and timed ("4096x8 M=40 traffic"). 64 envs x 8 agents x
+              200 steps with a spawn try every step and resets at step 175:
+              the card run bit-equal to the CPU run, and on the card the
+              exact mode's slot and wave schedules, whose cleanup replays and
+              collision cascade must both have run, bit-equal to the serial
+              transcription. Last, the train
+              entry point with --traffic --density 1.0 at 4096 x 4: 3 updates
+              and one more by auto-resume, finite losses
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
 
@@ -43,11 +59,13 @@ time of back-to-back calls of the wrapper, which includes the host's
 dispatch whenever a launch is shorter than the wrapper's Python call.
 "launch_floor_ms" (libm rows) is the device time of the smallest launch, a
 torch.add of two 1-element tensors. "launches" counts the main phase's
-launches, "launches_train" those of the train phase's 3 updates.
+launches, "launches_train" those of the train phase's 3 updates,
+"launches_traffic" those of the traffic phase's 200 exact-mode steps.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import io
@@ -218,6 +236,7 @@ def main() -> int:
     from marl_traffic_intersection_tpu_torch.ops import libm, lidar_cuda
     from marl_traffic_intersection_tpu_torch.ops.lidar_cases import edge_inputs, fuzz_inputs
     from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
 
     kernels = {}
 
@@ -329,10 +348,7 @@ def main() -> int:
     for label, args in timed.items():
         (B, N), M = args[0].shape, args[3].shape[1]
         ref, samples = lidar_scan_ref(*args, return_samples=True)
-        # what these inputs need: ~20 ops per marched sample (sample, screen,
-        # road) and 4 compares per ray and obstacle (the cull)
-        ops = float(samples.sum()) * 20 + B * N * 96 * M * 4
-        nbytes = 3 * B * N * 4 + 3 * B * M * 4 + B * M + B * N * 96 * 4
+        bound, bound_by = k1_bound(B, N, M, samples)
         variants = {"lidar.cu": lambda: lidar_scan(*args)}
         for d, (so, _) in baselines.items():
             scan = baseline_scan(so)
@@ -349,13 +365,12 @@ def main() -> int:
             times[v].append(device_ms(variants[v], 50, "lidar_kernel"))
         rows[label] = dict(
             ms={v: sum(t) / len(t) for v, t in times.items()},
-            bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
-            else "operations", blocks_per_sm=lidar_cuda.blocks_per_sm(M), lane_efficiency=lanes)
+            bound_ms=bound, bound_by=bound_by, blocks_per_sm=lidar_cuda.blocks_per_sm(M),
+            lane_efficiency=lanes)
         r = rows[label]
         phase("K1", f"{label}: device ms per launch, each the mean of two turns {times}; "
-                    f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {ops:.4e} ops, {nbytes} "
-                    f"bytes, {int(samples.sum())} samples marched; lane efficiency {lanes:.4f}); "
+                    f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}; {int(samples.sum())} "
+                    f"samples marched; lane efficiency {lanes:.4f}); "
                     f"{r['blocks_per_sm']} blocks of 96 threads per SM; card {card}")
     main_row, m36_row = rows["4096x4 M=4"], rows["512x8 M=36"]
     ref = lidar_scan_ref(*main_args)
@@ -418,6 +433,11 @@ def main() -> int:
                   f"{4096 * 200 / secs:.1f} env-steps/s, peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}; "
                   f"card {card}")
+    zeros = torch.zeros((4096, 4, 2), device=dev)
+    prof = profile_steps(lambda: venv.step(state, zeros)[1].obs.sum(), 10)
+    phase("main", f"profile of 10 steps, zero actions (as the bench): "
+                  f"{prof['kernel_launches_per_step']:.1f} launches per step, device busy "
+                  f"{prof['device_busy_ms_per_step']:.3f} of {prof['window_ms_per_step']:.3f} ms")
 
     # the whole slice, card against CPU, same resets and actions
     runs = {}
@@ -448,6 +468,8 @@ def main() -> int:
     phase("main", f"64x4, 100 steps: card run bit-equal to the CPU run ({len(runs['cpu'])} tensors)")
 
     if train_phase(dev, card, kernels):
+        return 1
+    if traffic_phase(dev, card, kernels):
         return 1
 
     print(json.dumps({"kernels": list(kernels.values())}))
@@ -614,6 +636,265 @@ def train_phase(dev, card, kernels) -> int:
         phase("train", "FAIL: " + msg)
         return 1
     phase("train", msg)
+    return 0
+
+
+TRAFFIC_B, TRAFFIC_N, TRAFFIC_STEPS = 4096, 8, 200
+TRAFFIC_CFG = dict(num_agents=TRAFFIC_N, traffic_flow=True, traffic_density=1.0, max_npcs=32)
+# the card-against-CPU run: a spawn try every step and episodes of 175 steps
+# in 200, so that the exact mode's cleanup replays and collision cascade run
+# (on the CPU: 606 and 19 rounds) and every env resets mid-run
+TRY_P, TRY_MAX_STEPS, TRY_STEPS = 1.0, 175, 200
+
+
+def k1_bound(B, N, M, samples):
+    """K1's least time in ms and what bounds it: ~20 operations per marched
+    sample (sample, screen, road) and 4 compares per ray and obstacle (the
+    cull) at the f32 peak; each input read once and the output written once."""
+    ops = float(samples.sum()) * 20 + B * N * 96 * M * 4
+    nbytes = 3 * B * N * 4 + 3 * B * M * 4 + B * M + B * N * 96 * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), \
+        "bytes" if by_bytes else "operations"
+
+
+def traffic_runs(dev, modes, B=64):
+    """The histories of ``B`` envs of config 4 on ``dev`` over TRY_STEPS
+    steps for each (npc_mode, npc_cleanup) in ``modes``, with the same
+    resets, actions and injected spawns; the first run's NPC-steps (alive
+    NPCs summed over steps); and each run's ``npc_stats`` (the exact mode's
+    loop rounds and device reads) with its seconds."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.core.routes import default_ego_routes
+
+    runs, alive, stats = {}, 0, {}
+    for mode, cleanup in modes:
+        t0 = time.perf_counter()
+        env = IntersectionEnv(EnvConfig(npc_mode=mode, npc_cleanup=cleanup,
+                                        max_steps=TRY_MAX_STEPS, **TRAFFIC_CFG), device=dev)
+        pool = env.table.route_ids(default_ego_routes(12, 3))
+        T = env.traffic_ids.shape[0]
+        rr, sr, ar = (np.random.RandomState(s) for s in (6, 8, 7))
+
+        def routes(k, rr=rr, pool=pool):
+            ids = np.stack([pool[rr.permutation(len(pool))[:TRAFFIC_N]] for _ in range(k)])
+            return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+        def spawns(k, sr=sr, T=T):
+            return (torch.from_numpy(sr.uniform(size=k) < TRY_P).to(dev),
+                    torch.from_numpy(sr.randint(T, size=k).astype(np.int32)).to(dev))
+
+        venv = VectorEnv(env, num_envs=B, route_sampler=routes, spawn_sampler=spawns)
+        st, obs = venv.reset()
+        hist = [obs.cpu()]
+        npc_steps = torch.zeros((), dtype=torch.int64, device=dev)
+        for _ in range(TRY_STEPS):
+            # mostly forward, so that the egos leave the spawn points to the NPCs
+            a = np.stack([ar.uniform(0.2, 1.0, (B, TRAFFIC_N)),
+                          ar.uniform(-0.2, 0.2, (B, TRAFFIC_N))], -1).astype(np.float32)
+            st, out = venv.step(st, torch.from_numpy(a).to(dev))
+            hist += [out.obs.cpu(), out.reward.cpu(), out.status.cpu(), out.done.cpu(),
+                     out.terminated.cpu(), out.truncated.cpu(), out.spawned.cpu()]
+            hist += [t.cpu() for t in (*st.ego, *st.npc, st.lidar, st.step_count)]
+            npc_steps += st.npc.alive.sum()
+        runs[(mode, cleanup)] = hist
+        stats[(mode, cleanup)] = dict(env.npc_stats, secs=round(time.perf_counter() - t0, 2))
+        if len(runs) == 1:
+            alive = int(npc_steps)
+    return runs, alive, stats
+
+
+def npc_breakdown(env, state) -> dict:
+    """Device and wall ms per call of the exact NPC update and of its dense
+    ghost-scan plan alone, on ``state``'s NPC pool (torch.profiler, 5 calls)."""
+    from marl_traffic_intersection_tpu_torch.core import npc as npc_module
+    from marl_traffic_intersection_tpu_torch.core.constants import DT_DEFAULT, PATH_LEN
+    from marl_traffic_intersection_tpu_torch.core.physics import update_path_index
+    from marl_traffic_intersection_tpu_torch.ops import libm
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
+
+    pool, ego, dev = state.npc, state.ego, env.device
+    B, M = pool.alive.shape
+    paths = env.paths[pool.route_id.long()]
+    pi0 = update_path_index(paths, PATH_LEN, pool.path_index, pool.x, pool.y)
+    others = pool.alive[:, None, :] & ~torch.eye(M, dtype=torch.bool, device=dev)
+    no_spawn = (torch.zeros(B, dtype=torch.bool, device=dev),
+                torch.zeros(B, dtype=torch.int32, device=dev))
+    poses = (pool.x, pool.y, pool.v, pool.heading, pool.uid)
+    parts = {
+        "npc_traffic_update exact slot": lambda: npc_module.npc_traffic_update(
+            pool, env.paths, env.goal_xy, env.spawn_xy, env.spawn_heading, env.traffic_ids,
+            ego.x, ego.y, torch.ones_like(ego.alive), *no_spawn, libm.const(DT_DEFAULT, dev)),
+        "dense plan (B, 32, 32, 160)": lambda: npc_module._plan(*poses, others, pi0, paths,
+                                                                poses),
+    }
+    out = {}
+    for name, fn in parts.items():
+        prof = profile_steps(fn, 5)
+        out[name] = {k: round(prof[k], 3) for k in ("device_busy_ms_per_step",
+                                                    "window_ms_per_step",
+                                                    "kernel_launches_per_step")}
+    return out
+
+
+def traffic_phase(dev, card, kernels) -> int:
+    """Phase 7 (see the module docstring); 1 on failure."""
+    from marl_traffic_intersection_tpu_torch import (ActorCriticMLP, EnvConfig,
+                                                     IntersectionEnv, VectorEnv)
+    from marl_traffic_intersection_tpu_torch.core import env as env_module
+    from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
+    from marl_traffic_intersection_tpu_torch.ops import lidar_cuda, native
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
+
+    B, N, STEPS = TRAFFIC_B, TRAFFIC_N, TRAFFIC_STEPS
+    torch.manual_seed(0)
+    model = ActorCriticMLP().to(dev)
+    with torch.no_grad():
+        # a cruise bias on the throttle mean (tanh(1) = 0.76): the seeded
+        # policy alone idles at the spawn points, and an ego there blocks
+        # every NPC spawn near it
+        model.pi_mean.bias[0] += 1.0
+    k1_seen, k1_args = collections.Counter(), []
+    scan = env_module.lidar_scan
+
+    def k1_counted(*args, **kw):          # the obstacle count of each launch
+        k1_seen[args[3].shape[1]] += 1
+        k1_args[:] = args
+        return scan(*args, **kw)
+
+    for mode, steps in (("exact", STEPS), ("fast", 100)):
+        env = IntersectionEnv(EnvConfig(npc_mode=mode, **TRAFFIC_CFG), device=dev)
+        venv = VectorEnv(env, num_envs=B, seed=2)
+        state, obs = venv.reset()
+        for _ in range(5):                                  # warm-up
+            state, out = venv.step(state, model.act(obs))
+            obs = out.obs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        env.npc_stats.clear()
+        k1_seen.clear()
+        alive = torch.zeros((steps, B), dtype=torch.int32, device=dev)
+        spawned = torch.zeros((), dtype=torch.int64, device=dev)
+        env_module.lidar_scan = k1_counted
+        try:
+            t0 = time.perf_counter()
+            for t in range(steps):
+                state, out = venv.step(state, model.act(obs))
+                obs = out.obs
+                alive[t] = state.npc.alive.sum(1)
+                spawned += out.spawned.sum()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            env_module.lidar_scan = scan
+        launches = dict(native.LAUNCHES)
+        stats = dict(env.npc_stats)
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(obs).all())
+        if obs.shape != (B, N, 127) or not finite or int(spawned) == 0:
+            phase("traffic", f"FAIL {mode}: obs {tuple(obs.shape)} finite={finite}, "
+                             f"{int(spawned)} NPCs spawned")
+            return 1
+        if dict(k1_seen) != {N + 32: steps} or launches.get("lidar_scan", 0) != steps:
+            phase("traffic", f"FAIL {mode}: K1 launches by obstacle count {dict(k1_seen)} "
+                             f"(want {{{N + 32}: {steps}}})")
+            return 1
+        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        if missing:
+            phase("traffic", f"FAIL {mode}: kernels not launched: {missing}")
+            return 1
+        prof = profile_steps(lambda: venv.step(state, model.act(obs)), 5)
+        top = [(k["name"][:60], round(k["ms_per_step"], 3), k["launches_per_step"])
+               for k in prof.pop("top_kernels")[:8]]
+        per_env = alive.float()
+        phase("traffic", f"config 4 {mode}, {B}x{N}, {steps} steps, bf16 MLP in the loop: "
+                         f"{B * steps / secs:.1f} env-steps/s; {int(spawned)} NPCs spawned; "
+                         f"alive slots per env: batch max {int(alive.max())}, mean "
+                         f"{float(per_env.mean()):.3f}, batch max by step mean "
+                         f"{float(per_env.amax(1).mean()):.2f}; kernel launches {launches} "
+                         f"({sum(launches.values()) / steps:.1f} per step); device reads and "
+                         f"NPC loop rounds {stats} ({stats.get('host_reads', 0) / steps:.2f} "
+                         f"reads per step); peak memory {peak / 2**20:.1f} MiB; profile of 5 "
+                         f"steps {json.dumps(prof)}; top kernels (name, ms, launches per step) "
+                         f"{top}; card {card}")
+        if mode == "exact":
+            for k in kernels:
+                kernels[k]["launches_traffic"] = launches[k]
+            args = list(k1_args)
+            phase("traffic", f"where the exact step's device time goes, on its last pool: "
+                             f"{json.dumps(npc_breakdown(env, state))}; card {card}")
+
+    # K1 on the exact run's last obstacle set, against its plain version, timed
+    got = lidar_cuda.lidar_scan(*args)
+    ref, samples = lidar_scan_ref(*args, return_samples=True)
+    if not bits_equal(got, ref):
+        diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        phase("traffic", f"FAIL: K1 differs from lidar_scan_ref on {diff} traffic rays")
+        return 1
+    M = args[3].shape[1]
+    bound, by = k1_bound(B, N, M, samples)
+    warps = samples.reshape(-1, 32).double()
+    k = kernels["lidar_scan"]
+    k.update(ms_traffic=device_ms(lambda: lidar_cuda.lidar_scan(*args), 50, "lidar_kernel"),
+             plain_ms_traffic=cuda_ms(lambda: lidar_scan_ref(*args), 3),
+             bound_ms_traffic=bound, bound_by_traffic=by,
+             max_abs_err_traffic=float((got - ref).abs().max()),
+             lane_efficiency_traffic=float(warps.sum() / (32 * warps.max(1).values).sum()),
+             blocks_per_sm_traffic=lidar_cuda.blocks_per_sm(M))
+    phase("traffic", f"K1 {B}x{N} M={M} traffic: bit-equal to the plain version "
+                     f"({got.numel()} rays, {int(samples.sum())} samples marched, "
+                     f"{int(args[6].sum())} obstacles present); device {k['ms_traffic']:.5f} ms, "
+                     f"plain {k['plain_ms_traffic']:.3f} ms, bound {bound:.5f} ms ({by}), lane "
+                     f"efficiency {k['lane_efficiency_traffic']:.4f}, "
+                     f"{k['blocks_per_sm_traffic']} blocks per SM; card {card}")
+
+    # 64 x 8 x 200 with injected spawns: card = CPU, and slot = wave = serial
+    modes = (("exact", "slot"), ("exact", "wave"), ("serial", "slot"))
+    cpu, _, _ = traffic_runs("cpu", modes[:1])
+    card_runs, alive_steps, loops = traffic_runs(dev, modes)
+    ref = cpu[modes[0]]
+    for key, hist in card_runs.items():
+        bad = [i for i, (a, b) in enumerate(zip(ref, hist)) if not bits_equal(a, b)]
+        if bad or len(hist) != len(ref):
+            phase("traffic", f"FAIL: the card's {key} run differs from the CPU's exact run in "
+                             f"{len(bad)} tensors, first #{bad[:1]}")
+            return 1
+    # the exact runs must have replayed dependent slots and run the cascade,
+    # else slot = wave = serial would rest on the dense pass alone
+    idle = [k for k in modes[:2] if not (loops[k].get("cleanup_rounds", 0) > 0
+                                         and loops[k].get("collision_rounds", 0) > 0)]
+    if alive_steps < 64 * TRY_STEPS or idle:
+        phase("traffic", f"FAIL: {alive_steps} NPC-steps in the 64-env run (want one per "
+                         f"env-step or more); loop rounds {loops}")
+        return 1
+    phase("traffic", f"64x8, {TRY_STEPS} steps, injected spawns: the card's exact slot, exact "
+                     f"wave and serial runs bit-equal to the CPU's exact run ({len(ref)} tensors "
+                     f"each; {alive_steps} NPC-steps); the card's loop rounds, device reads and "
+                     f"seconds by run {loops}")
+
+    # the train entry point with traffic: 3 updates, then one by auto-resume
+    from marl_traffic_intersection_tpu_torch.utils.checkpoint import restore_checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--num-envs", str(TRAIN_B), "--agents", str(TRAIN_N), "--rollout-len",
+                str(TRAIN_T), "--log-every", "1", "--traffic", "--density", "1.0",
+                "--checkpoint", os.path.join(tmp, "run")]
+        torch.cuda.reset_peak_memory_stats()
+        logs, _ = run_train(argv + ["--updates", "3"])
+        resumed, _ = run_train(argv + ["--updates", "4"])
+        peak = torch.cuda.max_memory_allocated()
+        saved = restore_checkpoint(argv[-1])
+        if (len(logs) != 3 or not losses_finite(logs) or [ln["update"] for ln in resumed] != [3]
+                or not losses_finite(resumed) or saved["update"] != 4
+                or int(saved["env_state"]["npc.next_uid"].sum()) == 0):
+            phase("traffic", f"FAIL: train --traffic logged {logs} then {resumed}; saved update "
+                             f"{saved['update']}")
+            return 1
+    phase("traffic", f"train --traffic --density 1.0, {TRAIN_B}x{TRAIN_N}, rollout {TRAIN_T}: "
+                     f"env-steps/s by update {[ln['env_steps_per_s'] for ln in logs + resumed]}, "
+                     f"rollout s {[ln['rollout_s'] for ln in logs + resumed]}, update s "
+                     f"{[ln['update_s'] for ln in logs + resumed]}; peak memory "
+                     f"{peak / 2**20:.1f} MiB; card {card}")
     return 0
 
 

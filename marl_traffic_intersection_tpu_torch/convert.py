@@ -15,7 +15,8 @@ Both directions go through numpy, so the port imports nothing of JAX:
     shape that does not fit the module.
   * ``env_state_from_numpy`` / ``env_state_to_numpy`` convert an ``EnvState``
     given as the JAX package's leaves (``ego``'s fields, ``lidar``,
-    ``step_count``) so that a lockstep can start from a JAX state.
+    ``step_count`` and ``npc``'s fields) so that a lockstep can start from a
+    JAX state.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from .core.env import EgoState, EnvState
+from .core.npc import NpcState
 from .models import make_model
 from .models.actor_critic import ActorCriticMLP
 from .models.attention import SceneTransformerPolicy
@@ -162,11 +164,12 @@ def params_from_flax(kind: str, params: Mapping, model: Optional[torch.nn.Module
 
 
 def env_state_from_numpy(ego: Mapping, lidar, step_count, device="cpu",
-                         batched: bool = True) -> EnvState:
+                         batched: bool = True, npc: Optional[Mapping] = None) -> EnvState:
     """An ``EnvState`` from the JAX package's leaves as numpy arrays.
 
-    ``ego`` maps EgoState field names to arrays; ``batched=False`` takes a
-    single env's (N,) leaves and adds the env axis.
+    ``ego`` and ``npc`` map EgoState and NpcState field names to arrays
+    (without ``npc``, the state has no NPC pool); ``batched=False`` takes a
+    single env's (N,) / (M,) / () leaves and adds the env axis.
     """
     def t(a):
         a = np.asarray(a)
@@ -175,12 +178,17 @@ def env_state_from_numpy(ego: Mapping, lidar, step_count, device="cpu",
         return torch.from_numpy(np.array(a)).to(device)
 
     e = EgoState(**{f: t(ego[f]) for f in EgoState._fields})
-    return EnvState(ego=e, lidar=t(lidar), step_count=t(np.asarray(step_count, np.int32)))
+    pool = NpcState(**{f: t(npc[f]) for f in NpcState._fields}) if npc is not None else None
+    return EnvState(ego=e, lidar=t(lidar), step_count=t(np.asarray(step_count, np.int32)),
+                    npc=pool)
 
 
 def env_state_to_numpy(state: EnvState) -> dict:
     """The state's leaves as numpy arrays: ``{"ego": {field: array}, "lidar",
-    "step_count"}``, each with the env axis first."""
+    "step_count", "npc": {field: array} or None}``, each with the env axis
+    first."""
+    npc = None if state.npc is None else {f: getattr(state.npc, f).cpu().numpy()
+                                          for f in NpcState._fields}
     return {"ego": {f: getattr(state.ego, f).cpu().numpy() for f in EgoState._fields},
             "lidar": state.lidar.cpu().numpy(),
-            "step_count": state.step_count.cpu().numpy()}
+            "step_count": state.step_count.cpu().numpy(), "npc": npc}

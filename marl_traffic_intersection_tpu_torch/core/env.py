@@ -1,4 +1,4 @@
-"""Intersection environment over an explicit batch of envs, no NPC traffic.
+"""Intersection environment over an explicit batch of envs.
 
 Counterpart of marl_traffic_intersection_tpu/core/env.py (reference:
 cpp/IntersectionEnv.cpp:133-520). Where the JAX package vmaps a single-env
@@ -7,13 +7,16 @@ step, every tensor here carries a leading env axis B and an agent axis N.
 writes the one it was given.
 
 Per tick, in the reference's order:
+  1. NPC traffic: spawn, controllers, collisions, despawn (core/npc.py)
+                                                        [traffic_flow]
   2. ego physics, path index, progress/stuck/smooth base reward
   3. per-ego status: SUCCESS -> out of screen -> off road -> line crossing
-  4. ordered ego-ego SAT collisions -> CRASH_CAR
+  4. ordered ego-ego SAT collisions, and ego-NPC overlaps -> CRASH_CAR
   5. terminal bonuses, team reward mixing
   6. respawn (crashes only) or terminated-on-any-done
   7. terminated when all alive agents succeeded; truncation at max_steps
-  8. lidar on the post-respawn state (kernel K1), observation (B, N, 127)
+  8. lidar on the post-respawn state against the egos and the alive NPCs
+     (kernel K1), observation (B, N, 127)
 
 The float chain is the reference's, which in the JAX package is the chain of
 ``exact_obs=True`` with ``exact_trig=True``: glibc trig, atan2f and hypotf
@@ -23,6 +26,7 @@ the respawn heading fetched with its sign bit.
 """
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Tuple
 
@@ -38,6 +42,8 @@ from .constants import (DT_DEFAULT, FPS, HEIGHT, LIDAR_MAX_DIST, LIDAR_RAYS,
                         STATUS_CRASH_CAR, STATUS_CRASH_LINE, STATUS_CRASH_WALL,
                         STATUS_DEAD, STATUS_SUCCESS, WIDTH)
 from .geometry import hits_yellow_line, is_line_pixel, is_on_road
+from .npc import (NpcState, init_npc_state, npc_traffic_update, npc_traffic_update_fast,
+                  npc_traffic_update_serial)
 from .physics import (car_corners, car_physics_step, sat_overlap,
                       update_path_index, wrap_angle)
 from .routes import RouteTable, build_route_table, default_ego_routes
@@ -63,7 +69,11 @@ class RewardParams(NamedTuple):
 @dataclass(frozen=True)
 class EnvConfig:
     """Static configuration, the same fields and defaults as the JAX package's
-    ``EnvConfig``. What this port does not cover yet raises."""
+    ``EnvConfig``. ``npc_mode`` is exact | serial | fast and ``npc_cleanup``
+    slot | wave (core/npc.py); every ``lidar_impl`` of the JAX package runs
+    kernel K1, since its lidar variants are bit-identical; ``npc_tier`` is
+    accepted and the NPC pool always runs at its full width. The
+    ``exact_*`` flags raise."""
 
     num_agents: int = 1
     num_lanes: int = 3
@@ -81,20 +91,17 @@ class EnvConfig:
     exact_obs: bool = False
 
     def __post_init__(self):
-        if self.traffic_flow:
-            raise NotImplementedError(
-                "traffic_flow=True: NPC traffic is ROADMAP queue 1 item 11")
+        for name, allowed in (("npc_mode", ("exact", "serial", "fast")),
+                              ("npc_cleanup", ("slot", "wave")),
+                              ("lidar_impl", ("auto", "xla", "pallas", "interval", "sweep"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r}: one of {allowed}")
         if self.exact_trig or self.exact_obs:
             # the port always runs the reference float chain; the flags
             # themselves are API parity
             raise NotImplementedError(
                 "exact_trig / exact_obs flags are ROADMAP queue 1 item 12 "
                 "(the port's chain is already the exact one)")
-        if self.lidar_impl not in ("auto", "xla", "pallas"):
-            raise NotImplementedError(
-                f"lidar_impl={self.lidar_impl!r}: the interval and sweep "
-                "variants belong to the traffic slice (ROADMAP queue 1 item 11); "
-                "the port has one lidar, kernel K1")
 
 
 class EgoState(NamedTuple):
@@ -117,6 +124,7 @@ class EnvState(NamedTuple):
     ego: EgoState
     lidar: torch.Tensor           # (B, N, 96) f32 distances
     step_count: torch.Tensor      # (B,) int32
+    npc: Optional[NpcState] = None  # (B, max_npcs) pool; (B, 0) without traffic
 
 
 class StepOutput(NamedTuple):
@@ -128,7 +136,7 @@ class StepOutput(NamedTuple):
     truncated: torch.Tensor       # (B,) bool
     agents_alive: torch.Tensor    # (B,) int32
     step: torch.Tensor            # (B,) int32
-    spawned: torch.Tensor         # (B,) bool, always False without traffic
+    spawned: torch.Tensor         # (B,) bool: an NPC spawned this tick
 
 
 def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -138,7 +146,9 @@ def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class IntersectionEnv:
     """Batched environment core on one device (``cuda`` unless ``device``
-    says otherwise)."""
+    says otherwise). With traffic, every step takes the tick's spawn draw
+    from its caller (VectorEnv draws it); ``npc_stats`` counts the NPC
+    loops' rounds and device reads (core/npc.py)."""
 
     def __init__(self, config: EnvConfig = EnvConfig(),
                  reward: Optional[RewardParams] = None,
@@ -154,6 +164,8 @@ class IntersectionEnv:
         self.intent = torch.from_numpy(t.intent.astype(np.float32)).to(dev)
         self.goal_xy = torch.from_numpy(t.goal_xy).to(dev)
         self.goal_prev_xy = torch.from_numpy(t.goal_prev_xy).to(dev)
+        self.traffic_ids = torch.from_numpy(t.traffic_route_ids).to(dev)
+        self.npc_stats: collections.Counter = collections.Counter()
         # hypotf(750, 750) on the host libm, as the reference (cpp:22)
         self.max_progress = float(np.float32(np.hypot(np.float32(WIDTH), np.float32(HEIGHT))))
 
@@ -190,13 +202,20 @@ class IntersectionEnv:
             alive=torch.ones((B, n), dtype=torch.bool, device=self.device))
         # the first obs sees all-max lidar (IntersectionEnv.cpp:117)
         lidar = torch.full((B, n, LIDAR_RAYS), LIDAR_MAX_DIST, dtype=_F, device=self.device)
-        return EnvState(ego=ego, lidar=lidar,
-                        step_count=torch.zeros((B,), dtype=_I, device=self.device))
+        cfg = self.config
+        # the step counter and the pool's uid counter are two rows of one
+        # zero fill, so the (B, 0) pool of a no-traffic reset costs no launch
+        step_count, next_uid = torch.zeros((2, B), dtype=_I, device=self.device).unbind(0)
+        npc = init_npc_state(B, cfg.max_npcs if cfg.traffic_flow else 0, self.device,
+                             next_uid=next_uid)
+        return EnvState(ego=ego, lidar=lidar, step_count=step_count, npc=npc)
 
     # ------------------------------------------------------------------- step
     def step(self, state: EnvState, actions: torch.Tensor, dt: float = DT_DEFAULT,
-             with_obs: bool = True) -> Tuple[EnvState, StepOutput]:
-        """actions (B, N, 2) float32 (throttle, steer) on the env's device."""
+             with_obs: bool = True, spawn=None) -> Tuple[EnvState, StepOutput]:
+        """actions (B, N, 2) float32 (throttle, steer) on the env's device.
+        With traffic, ``spawn`` = (do_try (B,) bool, route_choice (B,) int)
+        is the tick's NPC spawn draw (``core.npc.spawn_decision``)."""
         cfg, rw, ego = self.config, self.reward, state.ego
         n = cfg.num_agents
         B = ego.x.shape[0]
@@ -204,6 +223,25 @@ class IntersectionEnv:
         step_count = state.step_count + 1
         dt_t = libm.const(dt, dev)
         actions = actions.to(_F).reshape(B, n, 2)
+
+        # --- 1) NPC traffic (IntersectionEnv.cpp:140-142)
+        npc = state.npc
+        spawned = torch.zeros((B,), dtype=torch.bool, device=dev)
+        if cfg.traffic_flow:
+            if spawn is None:
+                raise ValueError("traffic_flow=True: step needs the tick's spawn draw")
+            do_try, route_choice = (t.to(dev) for t in spawn)
+            # every ego blocks a spawn, whatever its life state (TrafficFlow.cpp:245-250)
+            args = (npc, self.paths, self.goal_xy, self.spawn_xy, self.spawn_heading,
+                    self.traffic_ids, ego.x, ego.y, torch.ones_like(ego.alive),
+                    do_try, route_choice, dt_t)
+            if cfg.npc_mode == "fast":
+                npc, spawned = npc_traffic_update_fast(*args)
+            elif cfg.npc_mode == "serial":
+                npc, spawned = npc_traffic_update_serial(*args)
+            else:
+                npc, spawned = npc_traffic_update(*args, wave_cleanup=cfg.npc_cleanup == "wave",
+                                                  stats=self.npc_stats)
 
         # --- 2) ego physics + base rewards (IntersectionEnv.cpp:151-163)
         alive = ego.alive
@@ -272,11 +310,19 @@ class IntersectionEnv:
         # --- 4) ordered car-car collisions (IntersectionEnv.cpp:293-318)
         collide = sat_overlap(cn[:, :, None], heading[:, :, None],
                               cn[:, None, :], heading[:, None, :])   # (B, N, N)
+        if cfg.traffic_flow:
+            npc_cn = car_corners(npc.x, npc.y, npc.heading)        # (B, M, 4, 2)
+            npc_hit = (sat_overlap(cn[:, :, None], heading[:, :, None],
+                                   npc_cn[:, None, :], npc.heading[:, None, :])
+                       & npc.alive[:, None, :]).any(-1)            # (B, N)
         jidx = torch.arange(n, device=dev)
         for i in range(n):
             row_ok = alive[:, i] & ~done[:, i]                     # (B,)
             jm = row_ok[:, None] & (jidx > i) & alive & ~done & collide[:, i]
-            hit_i = row_ok & jm.any(-1)
+            hit = jm.any(-1)
+            if cfg.traffic_flow:
+                hit = hit | npc_hit[:, i]
+            hit_i = row_ok & hit
             upd = jm | ((jidx == i) & hit_i[:, None])
             done = done | upd
             status = torch.where(upd, STATUS_CRASH_CAR, status).to(_I)
@@ -327,18 +373,23 @@ class IntersectionEnv:
             prev_acc_norm=prev_acc_norm, prev_steer_norm=prev_steer_norm, alive=alive)
 
         # --- 8) lidar on the post-respawn state (IntersectionEnv.cpp:372-388):
-        # every ego is an obstacle; the eps self-test skips the agent's own slot
-        scan = lidar_scan(x, y, heading, x, y, heading,
-                          torch.ones((B, n), dtype=torch.bool, device=dev), cfg.num_lanes)
+        # every ego is an obstacle (the eps self-test skips the agent's own
+        # slot), then the NPC slots, present when alive
+        ones = torch.ones((B, n), dtype=torch.bool, device=dev)
+        if cfg.traffic_flow:
+            scan = lidar_scan(x, y, heading, torch.cat([x, npc.x], 1),
+                              torch.cat([y, npc.y], 1), torch.cat([heading, npc.heading], 1),
+                              torch.cat([ones, npc.alive], 1), cfg.num_lanes)
+        else:
+            scan = lidar_scan(x, y, heading, x, y, heading, ones, cfg.num_lanes)
         lidar = torch.where(alive[..., None], scan, state.lidar)
 
-        new_state = EnvState(ego=new_ego, lidar=lidar, step_count=step_count)
+        new_state = EnvState(ego=new_ego, lidar=lidar, step_count=step_count, npc=npc)
         obs = self.observe(new_state) if with_obs else \
             torch.zeros((B, n, OBS_DIM), dtype=_F, device=dev)
         out = StepOutput(obs=obs, reward=rewards, done=done, status=status,
                          terminated=terminated, truncated=truncated,
-                         agents_alive=agents_alive, step=step_count,
-                         spawned=torch.zeros((B,), dtype=torch.bool, device=dev))
+                         agents_alive=agents_alive, step=step_count, spawned=spawned)
         return new_state, out
 
     # ------------------------------------------------------------ observation
@@ -346,8 +397,9 @@ class IntersectionEnv:
         """The (B, N, 127) observation (reference: IntersectionEnv.cpp:418-520):
         [0:4] ego x/W, y/H, v/vmax, heading/pi; [4:6] lookahead target
         distance/W and heading error/pi; [6:31] five nearest neighbours x
-        {dx/W, dy/H, dv/vmax, dtheta/pi, intention}; [31:127] lidar/250.
-        Dead agents get all-zero rows."""
+        {dx/W, dy/H, dv/vmax, dtheta/pi, intention} among the other egos and,
+        with traffic, the alive NPCs; [31:127] lidar/250. Dead agents get
+        all-zero rows."""
         n = self.config.num_agents
         ego = state.ego
         dev = self.device
@@ -369,12 +421,19 @@ class IntersectionEnv:
         d_dst = div(dist2(dxd, dyd), WIDTH)
         theta_err = div(wrap_angle(libm.atan2f(-dyd, dxd) - heading), _PI32)
 
-        # neighbour pool: the other egos, padded to NEIGHBOR_COUNT slots
+        # neighbour pool: the other egos (then the NPC slots), padded to
+        # NEIGHBOR_COUNT slots
         kx, ky, kv, kh = x, y, v, heading
         ki = self.intent[rid]
         kmask = ego.alive
-        if n < NEIGHBOR_COUNT:
-            pad = NEIGHBOR_COUNT - n
+        if self.config.traffic_flow:
+            npc = state.npc
+            kx, ky, kv, kh = (torch.cat([a, b], 1) for a, b in
+                              ((kx, npc.x), (ky, npc.y), (kv, npc.v), (kh, npc.heading)))
+            ki = torch.cat([ki, self.intent[npc.route_id.long()]], 1)
+            kmask = torch.cat([kmask, npc.alive], 1)
+        if kx.shape[1] < NEIGHBOR_COUNT:
+            pad = NEIGHBOR_COUNT - kx.shape[1]
             zf = torch.zeros((B, pad), dtype=_F, device=dev)
             kx, ky, kv, kh, ki = (torch.cat([t, zf], dim=1) for t in (kx, ky, kv, kh, ki))
             kmask = torch.cat([kmask, torch.zeros((B, pad), dtype=torch.bool, device=dev)], 1)

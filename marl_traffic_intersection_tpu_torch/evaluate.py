@@ -6,6 +6,7 @@ success and crash counts (status transitions), mean episode length and
 reward, and env-steps/s.
 
   python -m marl_traffic_intersection_tpu_torch.evaluate --config 3 --vector 4096
+  python -m marl_traffic_intersection_tpu_torch.evaluate --config 4 --npc-mode fast
   python -m marl_traffic_intersection_tpu_torch.evaluate --policy mlp --seed 0
 
   python -m marl_traffic_intersection_tpu_torch.evaluate --policy checkpoint \
@@ -16,7 +17,8 @@ weights made from ``--seed``), or ``checkpoint``: the deterministic action
 ``tanh(mean)`` of a policy of family ``--model`` trained by the port's
 ``train`` and read from its ``--checkpoint`` directory (loading the JAX
 package's shipped orbax checkpoints is the checkpoint bridge, ROADMAP queue 1
-item 10). BASELINE configs 2 and 4 need NPC traffic and raise.
+item 10). BASELINE configs 2 and 4 run NPC traffic in ``--npc-mode`` (exact,
+serial or fast; core/npc.py), which the JSON line reports.
 """
 from __future__ import annotations
 
@@ -47,11 +49,11 @@ CONFIGS = {
 
 def evaluate(config: int = 1, num_envs: int = 1024, max_steps: int = 2000,
              policy: str = "random", seed: int = 0, device=None,
-             checkpoint: str = None, model_kind: str = "mlp") -> dict:
+             checkpoint: str = None, model_kind: str = "mlp", npc_mode: str = "exact") -> dict:
     dev = resolve_device(device)
     c = dict(CONFIGS[config])
     routes = c.pop("routes")
-    env = IntersectionEnv(EnvConfig(max_steps=max_steps, **c), device=dev)
+    env = IntersectionEnv(EnvConfig(max_steps=max_steps, npc_mode=npc_mode, **c), device=dev)
     rids = env.table.route_ids(routes) if routes else None
     venv = VectorEnv(env, num_envs=num_envs, route_pool=rids, seed=seed)
     n = env.config.num_agents
@@ -104,7 +106,8 @@ def evaluate(config: int = 1, num_envs: int = 1024, max_steps: int = 2000,
     succ, cc, co, eps, len_sum, rew_sum = sums.tolist()
     eps = max(int(eps), 1)
     return {
-        "config": config, "vector": num_envs, "policy": policy, "npc_mode": None,
+        "config": config, "vector": num_envs, "policy": policy,
+        "npc_mode": env.config.npc_mode if env.config.traffic_flow else None,
         "episodes": eps, "successes": int(succ),
         "success_rate_per_episode": round(succ / eps, 4),
         "crashes_vehicle": int(cc), "crashes_object": int(co),
@@ -127,11 +130,16 @@ def main(argv=None):
                     help="with --policy checkpoint: a directory saved by the port's train")
     ap.add_argument("--model", default="mlp", choices=sorted(MODEL_FAMILIES),
                     help="with --policy checkpoint: the checkpoint's model family")
+    ap.add_argument("--npc-mode", choices=["exact", "serial", "fast"], default="exact",
+                    help="NPC traffic semantics (traffic configs only): the reference's "
+                         "sequential order (exact, or its direct transcription serial) or a "
+                         "synchronous approximation (fast)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA card; 'cpu' to ask for it")
     args = ap.parse_args(argv)
     print(json.dumps(evaluate(args.config, args.vector, args.max_steps, args.policy,
-                              args.seed, args.device, args.checkpoint, args.model)))
+                              args.seed, args.device, args.checkpoint, args.model,
+                              args.npc_mode)))
 
 
 if __name__ == "__main__":

@@ -5,6 +5,9 @@
   # curriculum: easy -> hard stages, the policy and optimizer carried across
   python -m marl_traffic_intersection_tpu_torch.train --curriculum "agents=1@40;agents=2@40;agents=4@80"
   python -m marl_traffic_intersection_tpu_torch.train --device cpu --num-envs 8 --updates 2
+  # NPC traffic (core/npc.py); a curriculum may switch it on and raise the density
+  python -m marl_traffic_intersection_tpu_torch.train --traffic --density 1.0 --npc-mode exact
+  python -m marl_traffic_intersection_tpu_torch.train --curriculum "density=0.2,traffic=1@50;density=1.0@100"
 
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU, and raises
 without a card otherwise. Metrics stay on the device between log points; each
@@ -18,16 +21,16 @@ JSON line and writes its Chrome trace to TRACE.
 ``--checkpoint DIR`` saves a full training snapshot there at the end (and
 every ``--checkpoint-every`` updates): model and Adam state, the update
 counters, the env state and observation, and the state of every
-torch.Generator (action noise, minibatch permutations, route draws), so a
-resumed run continues the uninterrupted one exactly. Restarting the same
-command auto-resumes from DIR and counts the restored updates toward
+torch.Generator (action noise, minibatch permutations, route and NPC spawn
+draws), so a resumed run continues the uninterrupted one exactly. Restarting
+the same command auto-resumes from DIR and counts the restored updates toward
 ``--updates``; an explicit ``--resume DIR`` is a warm start whose restored
 counter is an offset, and ``--updates`` more run on top of it.
 
-Not here yet: ``--traffic``, ``--density`` and ``--npc-mode`` (NPC traffic,
-ROADMAP queue 1 item 11), ``--lidar-impl`` (the port has one lidar, K1),
-``--tp`` and ``--distributed`` (multi-GPU, item 14), ``--tb`` (TensorBoard
-logging, item 15), and ``--model gru`` (item 13).
+``--lidar-impl`` is accepted for train.py's sake: every choice runs kernel
+K1 (the JAX package's lidar variants are bit-identical). Not here yet:
+``--tp`` and ``--distributed`` (multi-GPU, ROADMAP queue 1 item 14), ``--tb``
+(TensorBoard logging, item 15), and ``--model gru`` (item 13).
 """
 from __future__ import annotations
 
@@ -88,6 +91,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--num-envs", type=int, default=1024)
     ap.add_argument("--agents", type=int, default=4)
+    ap.add_argument("--traffic", action="store_true", help="NPC traffic flow")
+    ap.add_argument("--density", type=float, default=0.5, help="NPC spawn rate per second")
+    ap.add_argument("--npc-mode", choices=["exact", "fast"], default="exact",
+                    help="NPC update semantics: the reference's sequential order, bit for "
+                         "bit, or a synchronous approximation")
+    ap.add_argument("--lidar-impl", choices=["auto", "xla", "interval", "pallas"],
+                    default="auto", help="accepted for train.py's sake; all run kernel K1")
     ap.add_argument("--updates", type=int, default=20)
     ap.add_argument("--rollout-len", type=int, default=64)
     ap.add_argument("--model", choices=["mlp", "attention", "conv", "gru", "central"],
@@ -100,7 +110,8 @@ def main(argv=None):
                     help="running discounted-return reward normalization")
     ap.add_argument("--curriculum", default=None,
                     help="staged training: 'key=val[,k=v]@updates;...' (keys: agents, "
-                         "ent_coef, lr, rollout_len); --updates is ignored when set")
+                         "density, traffic, ent_coef, lr, rollout_len); --updates is "
+                         "ignored when set")
     ap.add_argument("--routes", default=None,
                     help="restrict ego route sampling to a fixed pool, e.g. "
                          "'IN_6:OUT_2,IN_1:OUT_7' (default: all mapped routes)")
@@ -130,10 +141,6 @@ def main(argv=None):
     print(f"device={dev} ({dev_name})")
 
     stages = parse_curriculum(args.curriculum) if args.curriculum else [({}, args.updates)]
-    for ov, _ in stages:
-        if "traffic" in ov or "density" in ov:
-            raise NotImplementedError("curriculum keys traffic/density need NPC traffic: "
-                                      "ROADMAP queue 1 item 11")
     model = make_model(args.model, seed=args.seed)
     reward = None
     if args.reward:
@@ -177,12 +184,18 @@ def main(argv=None):
             stage_lo = stage_hi         # stage fully covered by the resumed counter
             continue
         agents = ov.get("agents", args.agents)
+        density = ov.get("density", args.density)
+        traffic = ov.get("traffic", args.traffic)
         ent_coef = ov.get("ent_coef", args.ent_coef)
         lr = ov.get("lr", args.lr)
         rollout_len = ov.get("rollout_len", args.rollout_len)
 
-        env = IntersectionEnv(EnvConfig(num_agents=agents, max_steps=2000), reward=reward,
-                              device=dev)
+        # a stage builds its own env, so one that changes traffic or density
+        # starts from fresh states
+        env = IntersectionEnv(EnvConfig(num_agents=agents, traffic_flow=traffic,
+                                        traffic_density=density, max_steps=2000,
+                                        npc_mode=args.npc_mode, lidar_impl=args.lidar_impl),
+                              reward=reward, device=dev)
         route_pool = None
         if args.routes:
             route_pool = env.table.route_ids([tuple(p.split(":")) for p in args.routes.split(",")])
@@ -210,8 +223,9 @@ def main(argv=None):
             learner.perm_generator.set_state(prev.perm_generator.get_state())
 
         if len(stages) > 1:
-            print(json.dumps({"stage": stage_idx, "agents": agents, "ent_coef": ent_coef,
-                              "lr": lr, "updates": updates}))
+            print(json.dumps({"stage": stage_idx, "agents": agents, "traffic": traffic,
+                              "density": density, "ent_coef": ent_coef, "lr": lr,
+                              "updates": updates}))
 
         state, obs = venv.reset()
         if resume is not None and "env_state" in resume and start_update > stage_lo:
@@ -222,7 +236,7 @@ def main(argv=None):
             gens = resume["generators"]
             learner.noise_generator.set_state(gens["noise"])
             learner.perm_generator.set_state(gens["perm"])
-            venv.generator.set_state(gens["routes"])
+            venv.generator.set_state(gens["routes"])     # routes and NPC spawns
             resume = None
 
         meter = StepsPerSecond(steps_per_tick=args.num_envs * rollout_len)

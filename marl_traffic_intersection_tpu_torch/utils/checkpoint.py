@@ -9,7 +9,8 @@ file is written beside its final name and renamed over it, so a run killed
 while saving leaves the previous checkpoint whole.
 
 ``env_state_to_dict`` / ``env_state_from_dict`` turn the env's state (an
-``EnvState``, or a ``NormState`` around one) into such a dict and back.
+``EnvState`` with its NPC pool, or a ``NormState`` around one) into such a
+dict and back.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Any
 import torch
 
 from ..core.env import EgoState, EnvState
+from ..core.npc import NpcState
 from ..envs.normalize import NormState
 
 FILE = "checkpoint.pt"
@@ -52,6 +54,8 @@ def env_state_to_dict(state) -> dict:
     es = state.env_state if norm else state
     d = {f"ego.{f}": getattr(es.ego, f) for f in EgoState._fields}
     d.update(lidar=es.lidar, step_count=es.step_count)
+    if es.npc is not None:
+        d.update({f"npc.{f}": getattr(es.npc, f) for f in NpcState._fields})
     if norm:
         d.update({f"norm.{f}": getattr(state, f) for f in ("ret", "count", "mean", "m2")})
     return d
@@ -61,8 +65,10 @@ def env_state_from_dict(d: dict, device):
     """The state ``env_state_to_dict`` saved, on ``device``; a ``NormState``
     when the dict holds the normalizer's statistics."""
     t = {k: v.to(device) for k, v in d.items()}
+    npc = NpcState(**{f: t[f"npc.{f}"] for f in NpcState._fields}) if "npc.alive" in t \
+        else None
     es = EnvState(ego=EgoState(**{f: t[f"ego.{f}"] for f in EgoState._fields}),
-                  lidar=t["lidar"], step_count=t["step_count"])
+                  lidar=t["lidar"], step_count=t["step_count"], npc=npc)
     if "norm.ret" not in t:
         return es
     return NormState(env_state=es, **{f: t[f"norm.{f}"] for f in ("ret", "count", "mean", "m2")})

@@ -9,6 +9,8 @@ the observations the jitted step would have returned.
 """
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -159,3 +161,80 @@ def lockstep_single(routes, steps, *, exact_obs=True, seed=11, **cfg):
         port_steps.append((ps, pout))
     compare_runs(jax_steps[1:], port_steps[1:], exact_obs, jenv, squeeze=True,
                  reset=(jax_steps[0][0], port_steps[0][1].obs))
+
+
+@contextlib.contextmanager
+def ieee_constant_division():
+    """Trace with ``jnp.divide``'s divisor behind an optimization barrier, so
+    XLA cannot turn a division by a constant into a multiply by its
+    reciprocal (H8). The physics' ``v / WHEELBASE`` is the one ``jnp.divide``
+    of the exact chain. This stands in for ``EXACT_COMPILE`` where compiling
+    without algsimp crashes XLA-CPU: the traffic step, through the spawn's
+    slot write (``npc_try_spawn``)."""
+    divide = jnp.divide
+    jnp.divide = lambda a, b: divide(a, jax.lax.optimization_barrier(jnp.asarray(b, a.dtype)))
+    try:
+        yield
+    finally:
+        jnp.divide = divide
+
+
+def jax_spawn_stepper(jenv: JaxEnv, state, actions):
+    """``jenv.step`` without the observation and with an injected spawn draw
+    ``(do_try, route_choice)``, compiled for these shapes on the reference
+    chain (``ieee_constant_division``)."""
+    fn = lambda s, a, d, r: jenv.step(s, a, spawn=(d, r), with_obs=False)
+    with ieee_constant_division():
+        lowered = jax.jit(fn).lower(state, actions, jnp.asarray(False), jnp.int32(0))
+    return lowered.compile()
+
+
+def assert_npc_bits(jax_npc, port_npc, where="") -> None:
+    """Every NpcState field bit for bit; the port's env axis is dropped when
+    the JAX pool has none."""
+    for f in port_npc._fields:
+        e, g = np.asarray(getattr(jax_npc, f)), getattr(port_npc, f).cpu().numpy()
+        if g.ndim > e.ndim:
+            g = g[0]
+        if e.dtype != np.float32:
+            e, g = e.astype(np.int64), g.astype(np.int64)
+        assert_bits(f"npc.{f}", e, g, where)
+
+
+def lockstep_traffic(routes, steps, density, *, spawn_every=None, seed=0, num_lanes=3,
+                     npc_mode="exact", throttle=None, **cfg):
+    """Step one JAX traffic env and the port (B=1) with the same random
+    actions and injected spawn draws: Bernoulli(1 - exp(-density/60)) or, with
+    ``spawn_every``, also a forced try every that many steps. The NPC pool is
+    held bit for bit every step, then the run as ``compare_runs`` does.
+    Returns the number of steps with an alive NPC."""
+    n = len(routes)
+    kw = dict(num_lanes=num_lanes, traffic_flow=True, traffic_density=density,
+              npc_mode=npc_mode, max_steps=4000, **cfg)
+    jenv = jax_env(n, **kw)
+    penv = port_env(n, **kw)
+    rid = jenv.table.route_ids(routes)
+    js = jenv.reset_state(jax.random.PRNGKey(seed), rid)
+    jstep = jax_spawn_stepper(jenv, js, jnp.zeros((n, 2), jnp.float32))
+    ps, pobs0 = penv.reset(rid)
+    T = jenv.table.traffic_route_ids.shape[0]
+    rng = np.random.RandomState(seed + 100)
+    p_spawn = 1.0 - np.exp(-density / 60.0)
+    jax_steps, port_steps, with_npcs = [], [], 0
+    for t in range(steps):
+        do_try = bool(rng.uniform() < p_spawn) or (spawn_every is not None
+                                                   and t % spawn_every == 7)
+        rc = int(rng.randint(T))
+        a = policy_random(rng, n)
+        if throttle is not None:        # drive straight on, clearing the spawn points
+            a[:] = (throttle, 0.0)
+        js, jout = jstep(js, jnp.asarray(a), jnp.asarray(do_try), jnp.int32(rc))
+        ps, pout = penv.step(ps, torch.from_numpy(a)[None],
+                             spawn=(torch.tensor([do_try]), torch.tensor([rc], dtype=torch.int32)))
+        assert bool(jout.spawned) == bool(pout.spawned[0]), t
+        assert_npc_bits(js.npc, ps.npc, f"step {t}")
+        with_npcs += int(np.asarray(js.npc.alive).any())
+        jax_steps.append((js, jout))
+        port_steps.append((ps, pout))
+    compare_runs(jax_steps, port_steps, True, jenv, squeeze=True)
+    return with_npcs

@@ -121,3 +121,39 @@ def test_division_by_a_constant_is_ieee_on_the_card(card):
     for c in (54.0, 750.0, 250.0, 0.6108652381980153):
         got = libm.div(torch.from_numpy(x).to(card), c)
         assert (_bits(got) == (x / np.float32(c)).view(np.int32)).all(), c
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_traffic_env_on_the_card_equals_the_cpu(card, mode):
+    """BASELINE config 4 (8 agents, density 1.0, 32 NPC slots) with injected
+    spawns: the card's run, NPC pool included, is bit-equal to the CPU's."""
+    import marl_traffic_intersection_tpu_torch as P
+    outs = {}
+    for dev in ("cpu", card):
+        env = P.IntersectionEnv(P.EnvConfig(num_agents=8, traffic_flow=True, traffic_density=1.0,
+                                            npc_mode=mode, max_steps=50), device=dev)
+        pool = env.table.route_ids(P.default_ego_routes(12, 3))
+        T = env.traffic_ids.shape[0]
+        rng, srng, arng = (np.random.RandomState(s) for s in (4, 6, 5))
+
+        def routes(k, rng=rng, pool=pool, dev=dev):
+            ids = np.stack([pool[rng.permutation(len(pool))[:8]] for _ in range(k)])
+            return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+        def spawns(k, srng=srng, T=T, dev=dev):
+            return (torch.from_numpy(srng.uniform(size=k) < 0.3).to(dev),
+                    torch.from_numpy(srng.randint(T, size=k).astype(np.int32)).to(dev))
+
+        venv = P.VectorEnv(env, num_envs=8, route_sampler=routes, spawn_sampler=spawns)
+        state, obs = venv.reset()
+        hist = [obs.cpu()]
+        for _ in range(100):
+            a = np.stack([arng.uniform(0.2, 1.0, (8, 8)), arng.uniform(-0.2, 0.2, (8, 8))], -1)
+            state, out = venv.step(state, torch.from_numpy(a.astype(np.float32)).to(dev))
+            hist += [out.obs.cpu(), out.reward.cpu(), out.status.cpu(), out.spawned.cpu()]
+            hist += [t.cpu() for t in state.npc] + [state.lidar.cpu()]
+        outs[str(dev)] = hist
+    assert sum(int(h.sum()) for h in outs["cpu"][4::15]) > 0      # NPCs spawned
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)

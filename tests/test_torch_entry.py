@@ -1,5 +1,5 @@
-"""The port's entry points: evaluate (on the CPU, when asked) and bench
-(which refuses without a card)."""
+"""The port's entry points: evaluate (on the CPU, when asked; the traffic
+configs too) and bench (which refuses without a card, in either mode)."""
 import json
 import os
 import subprocess
@@ -26,12 +26,25 @@ def test_evaluate_cpu_prints_eval_keys(policy, config, capsys):
 
 
 def test_evaluate_traffic_config_raises():
-    with pytest.raises(NotImplementedError):
-        evaluate.evaluate(config=2, num_envs=2, max_steps=1, device="cpu")
+    """BASELINE config 2 runs with NPC traffic on the CPU and reports its NPC
+    mode; an NPC mode the env does not know raises."""
+    line = evaluate.evaluate(config=2, num_envs=4, max_steps=20, device="cpu", npc_mode="fast")
+    assert line["npc_mode"] == "fast" and line["env_steps"] == 80
+    with pytest.raises(ValueError, match="npc_mode"):
+        evaluate.evaluate(config=4, num_envs=2, max_steps=1, device="cpu", npc_mode="tiered")
 
 
-def test_bench_refuses_without_a_card(monkeypatch):
+def test_evaluate_config4_exact_module_flag(capsys):
+    evaluate.main(["--config", "4", "--vector", "2", "--max-steps", "12", "--npc-mode", "exact",
+                   "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["npc_mode"] == "exact" and line["config"] == 4 and line["env_steps"] == 24
+
+
+@pytest.mark.parametrize("mode", ["default", "traffic"])
+def test_bench_refuses_without_a_card(monkeypatch, mode):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("BENCH_MODE", mode)
     with pytest.raises(SystemExit, match="no CUDA"):
         bench.main()
 

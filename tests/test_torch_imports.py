@@ -19,6 +19,7 @@ import torch
 import marl_traffic_intersection_tpu_torch as P
 from marl_traffic_intersection_tpu_torch import convert, evaluate, bench, train  # noqa: F401
 from marl_traffic_intersection_tpu_torch import models, parallel, utils  # noqa: F401
+from marl_traffic_intersection_tpu_torch.core import npc  # noqa: F401
 from marl_traffic_intersection_tpu_torch.envs.normalize import RewardNormVecEnv
 from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner
 env = P.IntersectionEnv(P.EnvConfig(num_agents=4), device="cpu")
@@ -58,10 +59,36 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     train.main(small + ["--device", "cpu"])
 
 
-@pytest.mark.parametrize("kw", [dict(traffic_flow=True), dict(exact_trig=True),
-                                dict(exact_obs=True), dict(lidar_impl="interval"),
-                                dict(lidar_impl="sweep")])
+@pytest.mark.parametrize("kw", [dict(exact_trig=True), dict(exact_obs=True)])
 def test_config_outside_the_slice_raises(kw):
     import marl_traffic_intersection_tpu_torch as P
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.EnvConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(traffic_flow=True), dict(lidar_impl="interval"),
+                                dict(lidar_impl="sweep", traffic_flow=True, npc_mode="fast")])
+def test_traffic_and_lidar_variants_build_and_step(kw):
+    """Every lidar variant runs kernel K1 (its plain version on the CPU)."""
+    import marl_traffic_intersection_tpu_torch as P
+    env = P.IntersectionEnv(P.EnvConfig(num_agents=2, **kw), device="cpu")
+    state, obs = env.reset(num_envs=2)
+    # the traffic route whose spawn point lies farthest from the egos
+    sp = env.spawn_xy[env.traffic_ids.long()]
+    gap = torch.cdist(sp, torch.stack([state.ego.x[0], state.ego.y[0]], -1)).amin(1)
+    rc = gap.argmax().to(torch.int32).expand(2)
+    if env.config.traffic_flow:     # the spawn draw is the caller's (VectorEnv's)
+        with pytest.raises(ValueError, match="spawn"):
+            env.step(state, torch.zeros(2, 2, 2))
+    state, out = env.step(state, torch.zeros(2, 2, 2), spawn=(torch.ones(2, dtype=torch.bool), rc))
+    assert out.obs.shape == (2, 2, 127) and bool(torch.isfinite(out.obs).all())
+    assert state.npc.alive.shape == (2, 32 if env.config.traffic_flow else 0)
+    assert bool(out.spawned.all()) == env.config.traffic_flow
+
+
+@pytest.mark.parametrize("kw", [dict(npc_mode="tiered"), dict(npc_cleanup="all"),
+                                dict(lidar_impl="dense")])
+def test_config_rejects_unknown_modes(kw):
+    import marl_traffic_intersection_tpu_torch as P
+    with pytest.raises(ValueError, match=next(iter(kw))):
+        P.EnvConfig(traffic_flow=True, **kw)

@@ -81,11 +81,45 @@ def test_parse_curriculum_rejects_what_train_py_rejects(spec):
         train.parse_curriculum(spec)
 
 
-@pytest.mark.parametrize("args", [["--model", "gru"], ["--curriculum", "density=0.2@1"],
-                                  ["--curriculum", "agents=2@1;traffic=1@1"]])
+@pytest.mark.parametrize("args", [["--model", "gru"]])
 def test_outside_the_slice_raises_naming_roadmap(args):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(SMALL + ["--updates", "1"] + args)
+
+
+@pytest.mark.parametrize("spec", ["traffic=1,density=0.2@1", "agents=1@1;traffic=1,density=2@1"])
+def test_traffic_curriculum_runs(capsys, spec):
+    """Stages that switch traffic on and change its density each build their
+    env and run their update."""
+    train.main(SMALL + ["--curriculum", spec])
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    logs = [ln for ln in lines if "update" in ln]
+    stages = [ln for ln in lines if "stage" in ln]
+    assert len(logs) == len(spec.split(";"))
+    assert all(torch.isfinite(torch.tensor(ln["pg_loss"])) for ln in logs)
+    if stages:
+        assert [s["traffic"] for s in stages] == [False, True]
+        assert stages[1]["density"] == 2.0
+
+
+def test_traffic_resumed_run_continues_exactly(tmp_path, capsys):
+    """--traffic: 4 updates equal 2 plus 2 after an auto-resume, bit for bit,
+    the NPC pool and the spawn draws included."""
+    extra = ["--traffic", "--density", "3.0", "--npc-mode", "exact"]
+    whole = _run(capsys, "--updates", 4, "--checkpoint", tmp_path / "a", *extra)
+    _run(capsys, "--updates", 2, "--checkpoint", tmp_path / "b", *extra)
+    rest = _run(capsys, "--updates", 4, "--checkpoint", tmp_path / "b", *extra)
+    for u, line in rest.items():
+        assert {k: v for k, v in line.items() if k not in TIMING} == \
+               {k: v for k, v in whole[u].items() if k not in TIMING}, u
+    a, b = restore_checkpoint(tmp_path / "a"), restore_checkpoint(tmp_path / "b")
+    npc = [k for k in a["env_state"] if k.startswith("npc.")]
+    assert len(npc) == 10 and a["env_state"]["npc.next_uid"].sum() > 0
+    for k in npc + ["lidar"]:
+        assert torch.equal(a["env_state"][k], b["env_state"][k]), k
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+    assert torch.equal(a["obs"], b["obs"])
 
 
 def test_steps_per_second_counts_like_the_jax_meter():
