@@ -50,6 +50,37 @@ Phases, one line each; any failure exits nonzero:
               transcription. Last, the train
               entry point with --traffic --density 1.0 at 4096 x 4: 3 updates
               and one more by auto-resume, finite losses
+  8. policies the twelve shipped policies (the committed numpy exports) loaded
+              onto the card; each family's forward on 4096 seeded observations
+              on the card and on the CPU within the CPU tests' bf16
+              tolerances; the GRUs over 16 steps of 6 seeded sequences, their
+              hidden states within GRU_H_BF16 (set from readings), and in
+              float32 means and hidden states within 1e-5; evaluate --config
+              1 --vector 1024 --max-steps 200 with each *_cfg1 policy (mlp,
+              attention, conv, gru, sac): success rate 1.0 and no crash, mean
+              episode length beside README's, K1 (1024x1 M=1) and the libm
+              kernels on the last step's operands bit-equal to their plain
+              versions; evaluate --config 4 --vector 4096 --max-steps
+              200 with policy_attn_multi, policy_gru_multi, policy_central_cfg4
+              and policy_sac_multi: finite rewards, K1 launched once per step
+              at M = 40, completions, crashes and env-steps/s; serve with
+              policy_mlp_multi and policy_gru_multi on a free local port, 3
+              requests each (1 row, 300 rows, and a third of 256 rows or a GRU
+              round trip with h), every answer bit-equal to a direct padded
+              forward on the card, latency per request
+  9. learners train --model gru at 4096 x 4, rollout 64: 3 updates with a
+              checkpoint, then one more by auto-resume (profiled): finite
+              losses, K1 launched 64 x 3 times, the split and peak memory;
+              train_sac at its defaults (256 x 2) for 40 calls with --demo
+              artifacts/policy_mlp_multi --demo-steps 16: the ring holding the
+              demo's transitions, updates begun, finite losses, K1 once per
+              env step, K1 (256x2 M=2) and the libm kernels on the last
+              step's operands bit-equal to their plain versions; train_sac
+              at 4096 x 4 for 8 calls: env-steps/s, peak
+              memory; one recurrent-PPO update and 8 SAC updates of fixed
+              64 x 4 x 16 CPU trajectories on the card and on the CPU in
+              float32 (injected permutations, indices and noise): parameters
+              within 1e-5 and Adam's moments within 1e-4 of their largest
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
 
@@ -60,7 +91,11 @@ dispatch whenever a launch is shorter than the wrapper's Python call.
 "launch_floor_ms" (libm rows) is the device time of the smallest launch, a
 torch.add of two 1-element tensors. "launches" counts the main phase's
 launches, "launches_train" those of the train phase's 3 updates,
-"launches_traffic" those of the traffic phase's 200 exact-mode steps.
+"launches_traffic" those of the traffic phase's 200 exact-mode steps,
+"launches_eval_config4" those of 200 config-4 evaluate steps with the GRU
+policy, "launches_gru_train" those of the 3 GRU updates at 4096 x 4 (and
+their reset's observation), "launches_sac_train" those of train_sac at
+256 x 2: 16 demo steps, then 40 calls of 8 env steps and updates.
 """
 from __future__ import annotations
 
@@ -76,7 +111,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
+import urllib.request
 
 import numpy as np
 import torch
@@ -467,10 +505,13 @@ def main() -> int:
         return 1
     phase("main", f"64x4, 100 steps: card run bit-equal to the CPU run ({len(runs['cpu'])} tensors)")
 
-    if train_phase(dev, card, kernels):
-        return 1
-    if traffic_phase(dev, card, kernels):
-        return 1
+    for name, fn in (("train", train_phase), ("traffic", traffic_phase),
+                     ("policies", policies_phase), ("learners", learners_phase)):
+        t0 = time.perf_counter()
+        if fn(dev, card, kernels):
+            return 1
+        phase(name, f"phase done in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
@@ -478,24 +519,28 @@ def main() -> int:
     return 0
 
 
-def run_train(argv):
+def json_lines(main, argv, tag):
+    """``main(argv)`` of an entry point, its output echoed under ``tag``;
+    returns its JSON lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    lines = []
+    for ln in buf.getvalue().splitlines():
+        phase(tag, ln)
+        if ln.startswith("{"):
+            lines.append(json.loads(ln))
+    return lines
+
+
+def run_train(argv, tag="train"):
     """``train.main(argv)``, its output echoed; returns its JSON log lines and
     its profile line (None without --profile)."""
     from marl_traffic_intersection_tpu_torch import train
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        train.main(argv)
-    logs, prof = [], None
-    for ln in buf.getvalue().splitlines():
-        phase("train", ln)
-        if ln.startswith("{"):
-            line = json.loads(ln)
-            if "profile" in line:
-                prof = line["profile"]
-            elif "update" in line:
-                logs.append(line)
-    return logs, prof
+    lines = json_lines(train.main, argv, tag)
+    profs = [ln["profile"] for ln in lines if "profile" in ln]
+    return [ln for ln in lines if "update" in ln], (profs[0] if profs else None)
 
 
 def losses_finite(logs):
@@ -503,7 +548,7 @@ def losses_finite(logs):
                                                             "approx_kl")]).all() for ln in logs)
 
 
-def split_line(name, logs, prof, peak, card):
+def split_line(name, logs, prof, peak, card, tag="train"):
     """The rollout/update split of the logged updates after the first (warm-up)
     and before a profiled one, peak memory and the profile, as one phase line."""
     timed = logs[1:-1] if prof else logs[1:]
@@ -512,7 +557,7 @@ def split_line(name, logs, prof, peak, card):
     steps = TRAIN_B * TRAIN_T * len(timed)
     top = [(k["name"][:60], round(k["ms_per_step"], 2), k["launches_per_step"])
            for k in (prof or {}).pop("top_kernels", [])]
-    phase("train", f"{name}: rollout s {roll}, update (GAE + 16 minibatches) s {upd}; "
+    phase(tag, f"{name}: rollout s {roll}, update (GAE + 16 minibatches) s {upd}; "
                    f"{steps / sum(roll + upd):.1f} env-steps/s; peak memory "
                    f"{peak / 2**20:.1f} MiB; profile of the last update {json.dumps(prof)}; "
                    f"top kernels (name, ms, launches): {top}; card {card}")
@@ -658,6 +703,69 @@ def k1_bound(B, N, M, samples):
         "bytes" if by_bytes else "operations"
 
 
+@contextlib.contextmanager
+def k1_counted():
+    """K1's launches by obstacle count M (``.by_m``) while the block runs, the
+    env's ``lidar_scan`` wrapped; ``.args`` keeps the last launch's arguments
+    and ``.libm`` each libm kernel's last operands on the card, for
+    ``held_to_plain``."""
+    from marl_traffic_intersection_tpu_torch.core import env as env_module
+    from marl_traffic_intersection_tpu_torch.ops import libm
+
+    scan, apply = env_module.lidar_scan, libm._apply
+    rec = types.SimpleNamespace(by_m=collections.Counter(), args=None, libm={})
+
+    def counted(*args, **kw):
+        rec.by_m[args[3].shape[1]] += 1
+        rec.args = args
+        return scan(*args, **kw)
+
+    def recorded(name, *xs):
+        if xs[0].is_cuda:
+            rec.libm[name] = xs
+        return apply(name, *xs)
+
+    env_module.lidar_scan, libm._apply = counted, recorded
+    try:
+        yield rec
+    finally:
+        env_module.lidar_scan, libm._apply = scan, apply
+
+
+def held_to_plain(rec, kernels) -> tuple:
+    """K1 on the last arguments ``k1_counted`` kept, and every libm kernel of
+    ``kernels`` on its last operands, against their plain versions
+    (``lidar_scan_ref``; the same wrapper on the CPU, the host build of
+    libm.cu's functions), bit for bit: (the shapes held, the failures)."""
+    from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
+    from marl_traffic_intersection_tpu_torch.ops import libm, lidar_cuda
+
+    held, bad = [], []
+    if rec.args is None:
+        bad.append("lidar_scan never launched")
+    else:
+        got, ref = lidar_cuda.lidar_scan(*rec.args), lidar_scan_ref(*rec.args)
+        B, N = rec.args[0].shape
+        held.append(f"lidar_scan {B}x{N} M={rec.args[3].shape[1]}")
+        if not bits_equal(got, ref):
+            bad.append(f"lidar_scan differs from lidar_scan_ref on "
+                       f"{int((got.cpu().view(torch.int32) != ref.cpu().view(torch.int32)).sum())}"
+                       f" rays at {held[-1]}")
+    for name in (k for k in kernels if k != "lidar_scan"):
+        xs = rec.libm.get(name)
+        if xs is None:
+            bad.append(f"{name} never launched")
+            continue
+        fn = getattr(libm, name)
+        got, want = fn(*xs), fn(*(x.cpu() for x in xs))
+        held.append(f"{name} {tuple(got.shape)}")
+        if not bits_equal(got, want):
+            bad.append(f"{name} differs from its CPU build on "
+                       f"{int((got.cpu().view(torch.int32) != want.view(torch.int32)).sum())} of "
+                       f"{got.numel()} operands")
+    return held, bad
+
+
 def traffic_runs(dev, modes, B=64):
     """The histories of ``B`` envs of config 4 on ``dev`` over TRY_STEPS
     steps for each (npc_mode, npc_cleanup) in ``modes``, with the same
@@ -741,7 +849,6 @@ def traffic_phase(dev, card, kernels) -> int:
     """Phase 7 (see the module docstring); 1 on failure."""
     from marl_traffic_intersection_tpu_torch import (ActorCriticMLP, EnvConfig,
                                                      IntersectionEnv, VectorEnv)
-    from marl_traffic_intersection_tpu_torch.core import env as env_module
     from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
     from marl_traffic_intersection_tpu_torch.ops import lidar_cuda, native
     from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
@@ -754,14 +861,6 @@ def traffic_phase(dev, card, kernels) -> int:
         # policy alone idles at the spawn points, and an ego there blocks
         # every NPC spawn near it
         model.pi_mean.bias[0] += 1.0
-    k1_seen, k1_args = collections.Counter(), []
-    scan = env_module.lidar_scan
-
-    def k1_counted(*args, **kw):          # the obstacle count of each launch
-        k1_seen[args[3].shape[1]] += 1
-        k1_args[:] = args
-        return scan(*args, **kw)
-
     for mode, steps in (("exact", STEPS), ("fast", 100)):
         env = IntersectionEnv(EnvConfig(npc_mode=mode, **TRAFFIC_CFG), device=dev)
         venv = VectorEnv(env, num_envs=B, seed=2)
@@ -773,11 +872,9 @@ def traffic_phase(dev, card, kernels) -> int:
         torch.cuda.reset_peak_memory_stats()
         native.reset_launches()
         env.npc_stats.clear()
-        k1_seen.clear()
         alive = torch.zeros((steps, B), dtype=torch.int32, device=dev)
         spawned = torch.zeros((), dtype=torch.int64, device=dev)
-        env_module.lidar_scan = k1_counted
-        try:
+        with k1_counted() as k1:
             t0 = time.perf_counter()
             for t in range(steps):
                 state, out = venv.step(state, model.act(obs))
@@ -786,8 +883,6 @@ def traffic_phase(dev, card, kernels) -> int:
                 spawned += out.spawned.sum()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        finally:
-            env_module.lidar_scan = scan
         launches = dict(native.LAUNCHES)
         stats = dict(env.npc_stats)
         peak = torch.cuda.max_memory_allocated()
@@ -796,8 +891,8 @@ def traffic_phase(dev, card, kernels) -> int:
             phase("traffic", f"FAIL {mode}: obs {tuple(obs.shape)} finite={finite}, "
                              f"{int(spawned)} NPCs spawned")
             return 1
-        if dict(k1_seen) != {N + 32: steps} or launches.get("lidar_scan", 0) != steps:
-            phase("traffic", f"FAIL {mode}: K1 launches by obstacle count {dict(k1_seen)} "
+        if dict(k1.by_m) != {N + 32: steps} or launches.get("lidar_scan", 0) != steps:
+            phase("traffic", f"FAIL {mode}: K1 launches by obstacle count {dict(k1.by_m)} "
                              f"(want {{{N + 32}: {steps}}})")
             return 1
         missing = [k for k in kernels if launches.get(k, 0) == 0]
@@ -821,7 +916,7 @@ def traffic_phase(dev, card, kernels) -> int:
         if mode == "exact":
             for k in kernels:
                 kernels[k]["launches_traffic"] = launches[k]
-            args = list(k1_args)
+            args = list(k1.args)
             phase("traffic", f"where the exact step's device time goes, on its last pool: "
                              f"{json.dumps(npc_breakdown(env, state))}; card {card}")
 
@@ -895,6 +990,413 @@ def traffic_phase(dev, card, kernels) -> int:
                      f"rollout s {[ln['rollout_s'] for ln in logs + resumed]}, update s "
                      f"{[ln['update_s'] for ln in logs + resumed]}; peak memory "
                      f"{peak / 2**20:.1f} MiB; card {card}")
+    return 0
+
+# the shipped policies: export name -> model family; README:231-240's mean
+# episode lengths on config 1
+SHIPPED = {"policy_mlp_cfg1": "mlp", "policy_mlp_multi": "mlp",
+           "policy_attn_cfg1": "attention", "policy_attn_multi": "attention",
+           "policy_conv_cfg1": "conv", "policy_conv_multi": "conv",
+           "policy_gru_cfg1": "gru", "policy_gru_multi": "gru",
+           "policy_central_cfg4": "central", "policy_central_multi": "central",
+           "policy_sac_cfg1": "sac", "policy_sac_multi": "sac"}
+README_EP_LEN = {"policy_mlp_cfg1": 71, "policy_attn_cfg1": 73, "policy_conv_cfg1": 68,
+                 "policy_gru_cfg1": 73, "policy_sac_cfg1": 78}
+# tests/test_torch_artifacts.py: bf16 outputs within 2^-5 of their largest
+# magnitude (the GRU's means at every step of a 16-step sequence), float32
+# ones within 1e-5 of it
+BF16_REL = 2.0 ** -5
+F32_REL = 1e-5
+# the GRU's hidden state (|h| < 1), card vs CPU over 16 steps: in bf16 each
+# step's rounding differences are carried on by the recurrence, so the bound
+# is twice the largest reading on an H100 (0.04297; 0.0176-0.0312 over these
+# 6 seeds, PERF.md); in float32 it is the outputs' 1e-5
+GRU_H_BF16 = 0.086
+GRU_SEEDS = range(11, 17)
+
+
+def padded_forward(act, obs, h, max_batch, dev):
+    """The answer of a direct forward on the card over ``obs`` (and ``h``)
+    cut into max_batch-row chunks, each zero-padded: (actions, h_new)."""
+    acts, hs = [], []
+    for i in range(0, len(obs), max_batch):
+        n = len(obs[i:i + max_batch])
+        po = torch.zeros((max_batch, 127), device=dev)
+        po[:n] = torch.from_numpy(obs[i:i + max_batch])
+        ph = None
+        if act.h_dim:
+            ph = torch.zeros((max_batch, act.h_dim), device=dev)
+            if h is not None:
+                ph[:n] = torch.from_numpy(h[i:i + max_batch])
+        a, h_new = act.forward(po, ph)
+        acts.append(a[:n].cpu().numpy())
+        if h_new is not None:
+            hs.append(h_new[:n].cpu().numpy())
+    return np.concatenate(acts), (np.concatenate(hs) if hs else None)
+
+
+def gru_drift(gm, cm, seq, dev) -> tuple:
+    """The GRU ``gm`` on the card and ``cm`` on the CPU over the steps of
+    ``seq`` (T, B, 127), both from zero hidden states: the largest difference
+    of the means relative to the largest mean, and the largest difference of
+    the hidden states, over all steps."""
+    hg, hc = gm.initial_hidden(seq.shape[1], device=dev), cm.initial_hidden(seq.shape[1])
+    err = h_err = 0.0
+    with torch.no_grad():
+        for o in seq:
+            mg, _, _, hg = gm(torch.from_numpy(o).to(dev), hg)
+            mc, _, _, hc = cm(torch.from_numpy(o), hc)
+            err = max(err, float((mg.cpu() - mc).abs().max()) / max(1.0, float(mc.abs().max())))
+            h_err = max(h_err, float((hg.cpu() - hc).abs().max()))
+    return err, h_err
+
+
+def policies_phase(dev, card, kernels) -> int:
+    """Phase 8 (see the module docstring); 1 on failure."""
+    from marl_traffic_intersection_tpu_torch import evaluate, serve
+    from marl_traffic_intersection_tpu_torch.convert import params_from_flax
+    from marl_traffic_intersection_tpu_torch.models import make_model
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.utils.checkpoint import (EXPORTS, load_policy,
+                                                                      read_export)
+
+    # ---- every export onto the card; each family's forward, card vs CPU
+    rng = np.random.RandomState(11)
+    obs = rng.uniform(-1, 1, (4096, 127)).astype(np.float32)
+    t0 = time.perf_counter()
+    worst, h_drift = {}, {}
+    for name, kind in SHIPPED.items():
+        (gm, gfn), (cm, cfn) = load_policy(name, kind, dev), load_policy(name, kind, "cpu")
+        if next(gm.parameters()).device != torch.device(dev):
+            phase("policies", f"FAIL: {name} did not load onto the card")
+            return 1
+        if kind == "gru":
+            # bf16 as loaded, over several seeded 16-step sequences, then float32
+            err, h_drift[name] = 0.0, []
+            for s in GRU_SEEDS:
+                seq = np.random.RandomState(s).uniform(-1, 1, (16, 4096, 127)).astype(np.float32)
+                e, h = gru_drift(gm, cm, seq, dev)
+                err = max(err, e)
+                h_drift[name].append(round(h, 6))
+            f32 = [params_from_flax(kind, read_export(EXPORTS / f"{name}.npz")["params"],
+                                    make_model(kind, compute_dtype=torch.float32))
+                   for _ in range(2)]
+            e32, h32 = gru_drift(f32[0].to(dev).eval(), f32[1].eval(), seq, dev)
+            worst[f"{name} float32 mean, h"] = (float(f"{e32:.4g}"), float(f"{h32:.4g}"))
+            if max(h_drift[name]) > GRU_H_BF16 or e32 > F32_REL or h32 > F32_REL:
+                phase("policies", f"FAIL: {name}: card vs CPU hidden states part by up to "
+                                  f"{h_drift[name]} in bf16 by seed (tolerance {GRU_H_BF16}); "
+                                  f"float32 means by {e32:.4g} of the largest and hidden "
+                                  f"states by {h32:.4g} (tolerance {F32_REL})")
+                return 1
+        else:
+            o = obs.reshape(1024, 4, 127) if kind == "central" else obs
+            mg, mc = gfn(torch.from_numpy(o).to(dev)).cpu(), cfn(torch.from_numpy(o))
+            err = float((mg - mc).abs().max() / max(1.0, float(mc.abs().max())))
+        worst[name] = round(err, 6)
+        if not err <= BF16_REL:
+            phase("policies", f"FAIL: {name}: card and CPU means part by {err:.4g} of the "
+                              f"largest (tolerance {BF16_REL})")
+            return 1
+    phase("policies", f"12 exports loaded onto the card; card vs CPU means on 4096 seeded "
+                      f"observations (the GRU over 16 steps of {len(GRU_SEEDS)} seeds), largest "
+                      f"difference relative to the largest mean (tolerance {BF16_REL}; float32 "
+                      f"{F32_REL}): {worst}; the GRU's largest bf16 hidden-state difference by "
+                      f"seed (tolerance {GRU_H_BF16}): {h_drift}; "
+                      f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- config 1 with each *_cfg1 policy
+    def run_eval(argv):
+        lines = json_lines(evaluate.main, argv, "policies")
+        return lines[-1]
+
+    for name, want_len in README_EP_LEN.items():
+        with k1_counted() as rec:
+            got = run_eval(["--config", "1", "--vector", "1024", "--max-steps", "200",
+                            "--policy", "checkpoint", "--checkpoint", f"artifacts/{name}",
+                            "--model", SHIPPED[name]])
+        held, bad = held_to_plain(rec, kernels)
+        ok = (got["success_rate_per_episode"] == 1.0 and got["crashes_vehicle"] == 0
+              and got["crashes_object"] == 0)
+        phase("policies", f"config 1, {name}: {got['episodes']} episodes, success rate "
+                          f"{got['success_rate_per_episode']}, crashes "
+                          f"{got['crashes_vehicle']} + {got['crashes_object']}, mean episode "
+                          f"length {got['mean_ep_len']} (README {want_len}), "
+                          f"{got['env_steps_per_s']} env-steps/s; the kernels on the last "
+                          f"step's operands bit-equal to their plain versions: {held}; card {card}")
+        if not ok or bad:
+            phase("policies", f"FAIL: {name} on config 1: {got}; {bad}")
+            return 1
+
+    # ---- config 4 (8 agents, traffic): K1 at M = 40 once per step
+    for name in ("policy_attn_multi", "policy_gru_multi", "policy_central_cfg4",
+                 "policy_sac_multi"):
+        native.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with k1_counted() as k1:
+            got = run_eval(["--config", "4", "--vector", "4096", "--max-steps", "200",
+                            "--policy", "checkpoint", "--checkpoint", f"artifacts/{name}",
+                            "--model", SHIPPED[name]])
+        launches = dict(native.LAUNCHES)
+        phase("policies", f"config 4, {name}, 4096 x 8, 200 exact steps: completions "
+                          f"{got['successes']}, crashes {got['crashes_vehicle']} vehicle + "
+                          f"{got['crashes_object']} object in {got['episodes']} episodes, "
+                          f"mean episode reward {got['mean_ep_reward']}, "
+                          f"{got['env_steps_per_s']} env-steps/s, K1 launches by M "
+                          f"{dict(k1.by_m)}, peak memory "
+                          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
+        if not np.isfinite(got["mean_ep_reward"]) or dict(k1.by_m) != {40: 200} \
+                or launches.get("lidar_scan", 0) != 200:
+            phase("policies", f"FAIL: {name} on config 4: {got}, launches {launches}")
+            return 1
+        if name == "policy_gru_multi":
+            missing = [k for k in kernels if launches.get(k, 0) == 0]
+            if missing:
+                phase("policies", f"FAIL: kernels not launched in evaluate: {missing}")
+                return 1
+            for k in kernels:
+                kernels[k]["launches_eval_config4"] = launches[k]
+
+    # ---- serve on a free local port, answers against a direct padded forward
+    def post(port, payload):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/act",
+                                     data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as r:
+            body = json.loads(r.read())
+        return body, (time.perf_counter() - t) * 1e3
+
+    for name in ("policy_mlp_multi", "policy_gru_multi"):
+        act = serve.make_policy(name, SHIPPED[name], 256, dev)
+        port = free_port()
+        httpd = serve.make_server(act, port)
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            rows = [rng.uniform(-1, 1, (n, 127)).astype(np.float32) for n in (1, 300, 300)]
+            answers, h_prev = [], None
+            for i, o in enumerate(rows):
+                h = h_prev if (i == 2 and act.h_dim) else None
+                if i == 2 and not act.h_dim:
+                    o = o[:256]
+                payload = {"obs": o.tolist(), **({"h": h.tolist()} if h is not None else {})}
+                body, ms = post(port, payload)
+                got_a = np.asarray(body["actions"], np.float32)
+                got_h = np.asarray(body["h"], np.float32) if act.h_dim else None
+                want_a, want_h = padded_forward(act, o, h, 256, dev)
+                same = got_a.shape == want_a.shape and np.array_equal(
+                    got_a.view(np.int32), want_a.view(np.int32))
+                if act.h_dim:
+                    same = same and np.array_equal(got_h.view(np.int32),
+                                                   want_h.view(np.int32))
+                answers.append((len(o), h is not None, round(ms, 3), same))
+                h_prev = got_h
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=30)
+        phase("policies", f"serve {name} (max_batch 256): (rows, with h, ms, bit-equal to a "
+                          f"direct padded forward) {answers}; card {card}")
+        if not all(a[3] for a in answers) or th.is_alive():
+            phase("policies", f"FAIL: serve {name}: {answers}")
+            return 1
+    return 0
+
+
+def free_port() -> int:
+    """A free local TCP port."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def learners_phase(dev, card, kernels) -> int:
+    """Phase 9 (see the module docstring); 1 on failure."""
+    from marl_traffic_intersection_tpu_torch import train_sac
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    B, N, T = TRAIN_B, TRAIN_N, TRAIN_T
+    size = ["--num-envs", str(B), "--agents", str(N), "--rollout-len", str(T), "--log-every", "1",
+            "--model", "gru"]
+    # ---- train --model gru at 4096 x 4: 3 updates, then one by auto-resume
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = size + ["--checkpoint", os.path.join(tmp, "run")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        logs, _ = run_train(argv + ["--updates", "3"], "learners")
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        resumed, prof = run_train(argv + ["--updates", "4", "--profile",
+                                          os.path.join(TRACES, "train_gru.json.gz")], "learners")
+        saved = restore_checkpoint(argv[-1])
+    k1 = launches.get("lidar_scan", 0)
+    if (len(logs) != 3 or not losses_finite(logs) or k1 != 3 * T
+            or [ln["update"] for ln in resumed] != [3] or not losses_finite(resumed)
+            or saved["update_count"] != 4 * 16 or tuple(saved["h"].shape) != (B, N, 128)):
+        phase("learners", f"FAIL: train --model gru logged {len(logs)} + {len(resumed)} lines, "
+                          f"K1 launched {k1} times (want {3 * T}), saved update_count "
+                          f"{saved['update_count']}")
+        return 1
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if missing:
+        phase("learners", f"FAIL: kernels not launched in GRU training: {missing}")
+        return 1
+    for k in kernels:
+        kernels[k]["launches_gru_train"] = launches[k]
+    split_line("gru", logs + resumed, prof, peak, card, "learners")
+    phase("learners", f"gru: 3 updates + 1 auto-resumed, finite losses, K1 launched {k1} times "
+                      f"in the 3; launches {launches}")
+
+    # ---- train_sac at its defaults, seeded by a shipped policy's demos
+    native.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with k1_counted() as rec:
+        lines = json_lines(train_sac.main, ["--calls", "40", "--demo",
+                                            "artifacts/policy_mlp_multi", "--demo-steps", "16"],
+                           "learners")
+    launches = dict(native.LAUNCHES)
+    held, bad = held_to_plain(rec, kernels)
+    if bad:
+        phase("learners", f"FAIL: train_sac 256 x 2: {bad}")
+        return 1
+    demo, logs = lines[0], [ln for ln in lines if "call" in ln]
+    keys = ("q_loss", "actor_loss", "alpha", "mean_q", "entropy", "mean_reward")
+    finite = bool(logs) and all(np.isfinite([ln[k] for k in keys]).all() for ln in logs)
+    k1 = launches.get("lidar_scan", 0)
+    if (demo.get("demo_transitions") != 16 * 256 * 2 or not finite or logs[-1]["updates"] != 320
+            or logs[-1]["alpha"] == 0.2 or k1 != 16 + 40 * 8):
+        phase("learners", f"FAIL: train_sac: demo {demo}, last log {logs[-1:]}, K1 launched "
+                          f"{k1} times (want {16 + 40 * 8})")
+        return 1
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if missing:
+        phase("learners", f"FAIL: kernels not launched in SAC training: {missing}")
+        return 1
+    for k in kernels:
+        kernels[k]["launches_sac_train"] = launches[k]
+    phase("learners", f"train_sac 256 x 2, 40 calls after {demo['demo_transitions']} demo "
+                      f"transitions: env-steps/s by log {[ln['env_steps_per_s'] for ln in logs]}, "
+                      f"alpha {logs[-1]['alpha']}, buffer {logs[-1]['buffer_size']}, K1 launched "
+                      f"{k1} times, by M {dict(rec.by_m)}; the kernels on the last step's "
+                      f"operands bit-equal to their plain versions: {held}; peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
+    torch.cuda.reset_peak_memory_stats()
+    lines = json_lines(train_sac.main, ["--num-envs", "4096", "--agents", "4", "--calls", "8"],
+                       "learners")
+    logs = [ln for ln in lines if "call" in ln]
+    if not logs or not all(np.isfinite([ln[k] for k in keys]).all() for ln in logs):
+        phase("learners", f"FAIL: train_sac 4096 x 4: {logs}")
+        return 1
+    phase("learners", f"train_sac 4096 x 4, 8 calls: env-steps/s {logs[-1]['env_steps_per_s']} "
+                      f"(calls 1-7), peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+                      f"MiB; card {card}")
+    return card_vs_cpu_learners(dev)
+
+
+def card_vs_cpu_learners(dev) -> int:
+    """One recurrent-PPO update and 8 SAC updates of fixed 64 x 4 x 16 CPU
+    trajectories on the card and on the CPU in float32, their permutations,
+    indices and noise injected: parameters within 1e-5, Adam's moments within
+    1e-4 of their largest, the updates moving the parameters more than ten
+    times that."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.models.recurrent import RecurrentActorCritic
+    from marl_traffic_intersection_tpu_torch.models.sac import SquashedGaussianActor, TwinQCritic
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig
+    from marl_traffic_intersection_tpu_torch.parallel.recurrent_ppo import (RecTransition,
+                                                                            RecurrentPPOLearner)
+    from marl_traffic_intersection_tpu_torch.parallel.sac import SACConfig, SACLearner
+
+    PARAM_TOL, MOMENT_TOL = 1e-5, 1e-4
+    f32 = dict(compute_dtype=torch.float32)
+
+    def venv_on(d):
+        return VectorEnv(IntersectionEnv(EnvConfig(num_agents=4), device=d), num_envs=64, seed=3)
+
+    def seeded(make):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(5)
+            return make()
+
+    def compare(name, models, opts, fresh):
+        """models/opts: {device: [modules]}, {device: [optimizers]}."""
+        cpu, gpu = models["cpu"], models[str(dev)]
+        pairs = [(a, b) for m, n in zip(cpu, gpu) for a, b in zip(m.parameters(), n.parameters())]
+        diff = max(float((a.detach() - b.detach().cpu()).abs().max()) for a, b in pairs)
+        mdiff = 0.0
+        for oc, og in zip(opts["cpu"], opts[str(dev)]):
+            for pc, pg in zip([p for g in oc.param_groups for p in g["params"]],
+                              [p for g in og.param_groups for p in g["params"]]):
+                for k in ("exp_avg", "exp_avg_sq"):
+                    a, b = oc.state[pc][k], og.state[pg][k].cpu()
+                    mdiff = max(mdiff, float((a - b).abs().max() / max(a.abs().max(), 1e-30)))
+        moved = max(float((a.detach() - f.detach()).abs().max())
+                    for m, fm in zip(cpu, fresh) for a, f in zip(m.parameters(), fm.parameters()))
+        msg = (f"{name}: card vs CPU parameters within {diff:.3g} (tolerance {PARAM_TOL}), Adam "
+               f"moments within {mdiff:.3g} of their largest (tolerance {MOMENT_TOL}); the "
+               f"updates moved the parameters up to {moved:.3g}")
+        ok = diff <= PARAM_TOL and mdiff <= MOMENT_TOL and moved > 10 * PARAM_TOL
+        phase("learners", ("" if ok else "FAIL: ") + msg)
+        return ok
+
+    # recurrent PPO: one update of a CPU trajectory
+    cfg = PPOConfig(rollout_len=16)
+    g = torch.Generator().manual_seed(9)
+    perms = [torch.randperm(cfg.num_minibatches, generator=g) for _ in range(cfg.update_epochs)]
+    models, opts = {}, {}
+    for d in ("cpu", dev):
+        queue = [p.to(d) for p in perms]
+        lrn = RecurrentPPOLearner(venv_on(d), seeded(lambda: RecurrentActorCritic(**f32)), cfg,
+                                  seed=4, perm_fn=lambda n, q=queue: q.pop(0))
+        ts = lrn.init()
+        if d == "cpu":
+            s0, o0 = lrn.env.reset()
+            _, _, _, traj_cpu, lv = lrn._rollout(ts.model, s0, o0, lrn.initial_hidden())
+            advs, rets = lrn._gae(traj_cpu, lv)
+        ts, _ = lrn._update(ts, RecTransition(*(t.to(d) for t in traj_cpu)), advs.to(d),
+                            rets.to(d))
+        models[str(d)], opts[str(d)] = [ts.model], [ts.optimizer]
+    if not compare("recurrent PPO, 64x4x16, one update (16 Adam steps)", models, opts,
+                   [seeded(lambda: RecurrentActorCritic(**f32))]):
+        return 1
+
+    # SAC: 8 updates from a ring of 64 x 4 x 16 CPU transitions
+    scfg = SACConfig(batch_size=256, buffer_capacity=64 * 4 * 16, warmup=0)
+    g = torch.Generator().manual_seed(10)
+    draws = [(torch.randint(0, 64 * 4 * 16, (256,), generator=g),
+              torch.randn(256, 2, generator=g), torch.randn(256, 2, generator=g))
+             for _ in range(8)]
+    nets = lambda: (SquashedGaussianActor(**f32), TwinQCritic(**f32))
+    models, opts = {}, {}
+    for d in ("cpu", dev):
+        idx = [i.to(d) for i, _, _ in draws]
+        noise = [n.to(d) for _, a, b in draws for n in (a, b)]
+        lrn = SACLearner(venv_on(d), scfg, *seeded(nets), seed=4,
+                         noise_fn=lambda shape, q=noise: q.pop(0),
+                         index_fn=lambda n, size, q=idx: q.pop(0))
+        ts = lrn.init()
+        if d == "cpu":
+            s0, o0 = lrn.env.reset()
+            gen = torch.Generator().manual_seed(12)
+            rand = lambda o: torch.rand(o.shape[:-1] + (2,), generator=gen) * 2 - 1
+            lrn.collect(ts, s0, o0, rand, 16)
+            ring = ts.buffer
+        else:
+            for k in ("obs", "action", "reward", "next_obs", "done"):
+                getattr(ts.buffer, k).copy_(getattr(ring, k))
+            ts.buffer.size.fill_(int(ring.size))
+        for _ in range(8):
+            lrn._update(ts)
+        models[str(d)] = [ts.actor, ts.critic, ts.critic_target]
+        opts[str(d)] = [ts.actor_opt, ts.q_opt, ts.alpha_opt]
+    fresh = list(seeded(nets))
+    fresh.append(fresh[1])
+    if not compare("SAC, a 64x4x16 ring, 8 updates", models, opts, fresh):
+        return 1
     return 0
 
 

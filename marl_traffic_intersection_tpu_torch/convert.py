@@ -13,6 +13,11 @@ Both directions go through numpy, so the port imports nothing of JAX:
     kernels from (D, H, Dh) to (H*Dh, D) and its ``out`` kernel from
     (H, Dh, D) to (D, H*Dh). Every converter raises ``ValueError`` on a
     shape that does not fit the module.
+  * ``gru_params_from_flax`` fills the GRU cell's fused (3H, in) and (3H, H)
+    matrices row block by row block from flax's ``ir``/``iz``/``in`` and
+    ``hr``/``hz``/``hn``; ``sac_actor_params_from_flax`` loads the SAC actor
+    (``params_from_flax("sac", ...)``) and ``sac_critic_params_from_flax`` the
+    stacked twin critic, whose (2, in, out) kernels keep flax's layout.
   * ``env_state_from_numpy`` / ``env_state_to_numpy`` convert an ``EnvState``
     given as the JAX package's leaves (``ego``'s fields, ``lidar``,
     ``step_count`` and ``npc``'s fields) so that a lockstep can start from a
@@ -32,6 +37,8 @@ from .models.actor_critic import ActorCriticMLP
 from .models.attention import SceneTransformerPolicy
 from .models.central import CentralizedActorCritic
 from .models.conv import LidarConvPolicy
+from .models.recurrent import RecurrentActorCritic
+from .models.sac import SquashedGaussianActor, TwinQCritic
 
 # (flax path, the port's parameter, how a flax array becomes its value)
 _Entry = Tuple[str, torch.nn.Parameter, Callable[[np.ndarray], np.ndarray]]
@@ -151,8 +158,49 @@ def central_params_from_flax(params: Mapping, model: Optional[CentralizedActorCr
     return _load(params, entries, model)
 
 
+def gru_params_from_flax(params: Mapping, model: Optional[RecurrentActorCritic] = None
+                         ) -> RecurrentActorCritic:
+    """A flax RecurrentActorCritic tree into ``model`` (default: a new bf16 one)."""
+    model = model if model is not None else RecurrentActorCritic()
+    cell, H = model.gru, model.gru_features
+    entries = _dense("torso_0", model.torso_0) + _dense("pi_mean", model.pi_mean) \
+        + _dense("vf", model.vf) + [("log_std", model.log_std, _same)]
+    with torch.no_grad():           # row blocks of the fused matrices, as views
+        for g, gate in enumerate("rzn"):
+            rows = slice(g * H, (g + 1) * H)
+            entries += [(f"gru/i{gate}/kernel", cell.w_ih[rows], _transposed),
+                        (f"gru/i{gate}/bias", cell.b_ih[rows], _same),
+                        (f"gru/h{gate}/kernel", cell.w_hh[rows], _transposed)]
+    entries.append(("gru/hn/bias", cell.b_hn, _same))
+    return _load(params, entries, model)
+
+
+def sac_actor_params_from_flax(params: Mapping, model: Optional[SquashedGaussianActor] = None
+                               ) -> SquashedGaussianActor:
+    """A flax SquashedGaussianActor tree into ``model`` (default: a new bf16 one)."""
+    model = model if model is not None else SquashedGaussianActor()
+    entries = []
+    for i, lin in enumerate(model.torso):
+        entries += _dense(f"torso_{i}", lin)
+    entries += _dense("mean", model.mean) + _dense("log_std", model.log_std)
+    return _load(params, entries, model)
+
+
+def sac_critic_params_from_flax(params: Mapping, model: Optional[TwinQCritic] = None
+                                ) -> TwinQCritic:
+    """The JAX package's stacked twin QCritic tree (leaves with a leading
+    axis of 2) into ``model`` (default: a new bf16 one)."""
+    model = model if model is not None else TwinQCritic()
+    names = [f"torso_{i}" for i in range(len(model.kernels) - 1)] + ["q"]
+    entries = []
+    for name, w, b in zip(names, model.kernels, model.biases):
+        entries += [(f"{name}/kernel", w, _same), (f"{name}/bias", b, _same)]
+    return _load(params, entries, model)
+
+
 FROM_FLAX = {"mlp": mlp_params_from_flax, "conv": conv_params_from_flax,
-             "attention": attention_params_from_flax, "central": central_params_from_flax}
+             "attention": attention_params_from_flax, "central": central_params_from_flax,
+             "gru": gru_params_from_flax, "sac": sac_actor_params_from_flax}
 
 
 def params_from_flax(kind: str, params: Mapping, model: Optional[torch.nn.Module] = None

@@ -72,8 +72,20 @@ class EnvConfig:
     ``EnvConfig``. ``npc_mode`` is exact | serial | fast and ``npc_cleanup``
     slot | wave (core/npc.py); every ``lidar_impl`` of the JAX package runs
     kernel K1, since its lidar variants are bit-identical; ``npc_tier`` is
-    accepted and the NPC pool always runs at its full width. The
-    ``exact_*`` flags raise."""
+    accepted and the NPC pool always runs at its full width.
+
+    ``exact_trig`` and ``exact_obs`` are accepted for API parity and change
+    nothing: the port always runs the reference float chain that the JAX
+    package selects with both on (glibc-faithful sinf/cosf/tanf/atan2f/hypotf,
+    IEEE divisions by device-resident constants, square roots taken in
+    float64 and rounded once, every product rounded before its add), so every
+    combination of the flags selects the same computation. The JAX package's
+    ``_div32`` (ops/exact_trig.py:185) and ``sqrtf_exact``
+    (ops/exact_libm.py:88) emulate an IEEE divide and square root on a TPU,
+    whose own are not correctly rounded; they have no counterpart here, since
+    CUDA's ``/`` and ``sqrtf`` (built with ``-prec-div=true -prec-sqrt=true``)
+    are correctly rounded, and so is the float64 square root rounded to
+    float32 that the port takes on the CPU."""
 
     num_agents: int = 1
     num_lanes: int = 3
@@ -96,12 +108,6 @@ class EnvConfig:
                               ("lidar_impl", ("auto", "xla", "pallas", "interval", "sweep"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: one of {allowed}")
-        if self.exact_trig or self.exact_obs:
-            # the port always runs the reference float chain; the flags
-            # themselves are API parity
-            raise NotImplementedError(
-                "exact_trig / exact_obs flags are ROADMAP queue 1 item 12 "
-                "(the port's chain is already the exact one)")
 
 
 class EgoState(NamedTuple):

@@ -11,14 +11,18 @@ reward, and env-steps/s.
 
   python -m marl_traffic_intersection_tpu_torch.evaluate --policy checkpoint \
       --checkpoint runs/ppo --model mlp
+  python -m marl_traffic_intersection_tpu_torch.evaluate --config 4 --vector 4096 \
+      --policy checkpoint --checkpoint artifacts/policy_gru_multi --model gru
 
 Policies: ``random`` (uniform actions), ``mlp`` (the 256-256 ActorCriticMLP,
 weights made from ``--seed``), or ``checkpoint``: the deterministic action
-``tanh(mean)`` of a policy of family ``--model`` trained by the port's
-``train`` and read from its ``--checkpoint`` directory (loading the JAX
-package's shipped orbax checkpoints is the checkpoint bridge, ROADMAP queue 1
-item 10). BASELINE configs 2 and 4 run NPC traffic in ``--npc-mode`` (exact,
-serial or fast; core/npc.py), which the JSON line reports.
+``tanh(mean)`` of a policy of family ``--model`` read by
+``utils/checkpoint.py::load_policy`` from ``--checkpoint``, a directory saved
+by the port's ``train`` (``train_sac`` for ``--model sac``) or a shipped
+policy (``artifacts/policy_mlp_cfg1``, or its bare name). The GRU's hidden
+state is zeroed at each agent's life boundary, as in training. BASELINE
+configs 2 and 4 run NPC traffic in ``--npc-mode`` (exact, serial or fast;
+core/npc.py), which the JSON line reports.
 """
 from __future__ import annotations
 
@@ -33,9 +37,9 @@ from .core.constants import (STATUS_ALIVE, STATUS_CRASH_CAR, STATUS_CRASH_LINE,
 from .core.env import EnvConfig, IntersectionEnv
 from .device import resolve_device
 from .envs.vector import VectorEnv
-from .models import MODEL_FAMILIES, make_model
+from .models import MODEL_FAMILIES
 from .models.actor_critic import ActorCriticMLP
-from .utils.checkpoint import restore_checkpoint
+from .utils.checkpoint import load_policy
 
 CONFIGS = {
     1: dict(num_agents=1, traffic_flow=False, routes=[("IN_6", "OUT_2")]),
@@ -58,16 +62,24 @@ def evaluate(config: int = 1, num_envs: int = 1024, max_steps: int = 2000,
     venv = VectorEnv(env, num_envs=num_envs, route_pool=rids, seed=seed)
     n = env.config.num_agents
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    h = None                  # the GRU's hidden state
     if policy == "mlp":
         torch.manual_seed(seed)
         model = ActorCriticMLP().to(dev)
         act_fn = model.act
     elif policy == "checkpoint":
         if checkpoint is None:
-            raise ValueError("policy 'checkpoint' needs a checkpoint directory")
-        model = make_model(model_kind).to(dev)
-        model.load_state_dict(restore_checkpoint(checkpoint)["model"])
-        act_fn = torch.no_grad()(lambda obs: torch.tanh(model(obs)[0]))
+            raise ValueError("policy 'checkpoint' needs a checkpoint directory or a shipped policy")
+        model, mean_fn = load_policy(checkpoint, model_kind, dev)
+        if model_kind == "gru":
+            h = model.initial_hidden(num_envs, n, device=dev)
+
+            def act_fn(obs):
+                nonlocal h
+                mean, h = mean_fn(obs, h)
+                return torch.tanh(mean)
+        else:
+            act_fn = lambda obs: torch.tanh(mean_fn(obs))
     elif policy == "random":
         act_fn = lambda obs: torch.rand((num_envs, n, 2), generator=gen, device=dev) * 2 - 1
     else:
@@ -86,6 +98,8 @@ def evaluate(config: int = 1, num_envs: int = 1024, max_steps: int = 2000,
         obs = out.obs
         st = out.status
         ep_done = out.terminated | out.truncated
+        if h is not None:     # zero memory at agent life boundaries, matching training
+            h = h * (1.0 - (out.done | ep_done[:, None]).float())[..., None]
         ep_len = ep_len + 1
         ep_rew = ep_rew + out.reward.sum(-1)
         sums += torch.stack([
@@ -127,7 +141,8 @@ def main(argv=None):
     ap.add_argument("--max-steps", type=int, default=2000)
     ap.add_argument("--policy", choices=["random", "mlp", "checkpoint"], default="random")
     ap.add_argument("--checkpoint", default=None,
-                    help="with --policy checkpoint: a directory saved by the port's train")
+                    help="with --policy checkpoint: a directory saved by the port's train "
+                         "or train_sac, or a shipped policy (artifacts/policy_mlp_cfg1)")
     ap.add_argument("--model", default="mlp", choices=sorted(MODEL_FAMILIES),
                     help="with --policy checkpoint: the checkpoint's model family")
     ap.add_argument("--npc-mode", choices=["exact", "serial", "fast"], default="exact",

@@ -153,9 +153,13 @@ class PPOLearner:
 
     # ------------------------------------------------------------------- update
     def _loss(self, model: nn.Module, batch, actor_on: float = 1.0):
-        cfg = self.cfg
         obs, raw, old_logp, adv, ret, old_value = batch
         mean, log_std, value = model(obs)
+        return self._ppo_loss(mean, log_std, value, raw, old_logp, adv, ret, old_value, actor_on)
+
+    def _ppo_loss(self, mean, log_std, value, raw, old_logp, adv, ret, old_value, actor_on):
+        """The clipped PPO loss of the policy's outputs on a batch, and its metrics."""
+        cfg = self.cfg
         logp, entropy = logp_and_entropy(mean, log_std, raw)
         ratio = torch.exp(logp - old_logp)
         adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
@@ -170,41 +174,46 @@ class PPOLearner:
                        approx_kl=(old_logp - logp).mean())
         return total, metrics
 
+    def _minibatches(self, traj: Transition, advs: torch.Tensor, rets: torch.Tensor):
+        """Per epoch, ``num_minibatches`` batches of ``_loss``: one permutation
+        of the time axis per epoch, cut into equal slices."""
+        cfg = self.cfg
+        T, mb = cfg.rollout_len, cfg.num_minibatches
+        size = T // mb
+        data = (traj.obs, traj.raw_action, traj.logp, advs, rets, traj.value)
+        for _ in range(cfg.update_epochs):
+            perm = self.perm_fn(T)          # shuffle time only
+            for i in range(mb):
+                idx = perm[i * size:(i + 1) * size]
+                yield tuple(x[idx] for x in data)
+
     def _update(self, ts: TrainState, traj: Transition, advs: torch.Tensor, rets: torch.Tensor):
         cfg = self.cfg
         T, mb = cfg.rollout_len, cfg.num_minibatches
         if T % mb:
             raise ValueError(f"rollout_len {T} is not a multiple of num_minibatches {mb}")
-        size = T // mb
-        data = (traj.obs, traj.raw_action, traj.logp, advs, rets, traj.value)
         per_step = cfg.update_epochs * mb
         params = [p for p in ts.model.parameters() if p.requires_grad]
         sums = torch.zeros(len(LOSS_METRICS), device=advs.device)
-        for _ in range(cfg.update_epochs):
-            perm = self.perm_fn(T)          # shuffle time only
-            for i in range(mb):
-                idx = perm[i * size:(i + 1) * size]
-                actor_on = 1.0 if ts.update_count >= cfg.critic_warmup * per_step else 0.0
-                loss, metrics = self._loss(ts.model, tuple(x[idx] for x in data), actor_on)
-                ts.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                clip_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
-                ts.optimizer.step()
-                ts.update_count += 1
-                sums += torch.stack([metrics[k].detach() for k in LOSS_METRICS])
+        for batch in self._minibatches(traj, advs, rets):
+            actor_on = 1.0 if ts.update_count >= cfg.critic_warmup * per_step else 0.0
+            loss, metrics = self._loss(ts.model, batch, actor_on)
+            ts.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            clip_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
+            ts.optimizer.step()
+            ts.update_count += 1
+            sums += torch.stack([metrics[k].detach() for k in LOSS_METRICS])
         return ts, dict(zip(LOSS_METRICS, (sums / per_step).unbind()))
 
     # --------------------------------------------------------------- train step
-    def train_step(self, ts: TrainState, env_state, obs: torch.Tensor,
-                   split: Optional[Dict[str, float]] = None):
-        """One rollout + PPO update: ``(ts, env_state, obs, metrics)``, the
-        metrics 0-d tensors on the device. Given a ``split`` dict, it waits
-        for the device before, between and after the two halves and stores
-        their seconds there as ``rollout_s`` and ``update_s`` (GAE included)."""
+    def _train(self, ts: TrainState, carry: tuple, split: Optional[Dict[str, float]]):
+        """Rollout from ``carry`` (the arguments of ``_rollout`` after the
+        model), GAE and the update: ``(ts, carry, metrics)``."""
         if split is not None:
             self._sync()
             t0 = time.perf_counter()
-        env_state, obs, traj, last_value = self._rollout(ts.model, env_state, obs)
+        *carry, traj, last_value = self._rollout(ts.model, *carry)
         if split is not None:
             self._sync()
             t1 = time.perf_counter()
@@ -219,6 +228,15 @@ class PPOLearner:
         metrics.update(mean_reward=traj.reward.mean(), mean_value=traj.value.mean(),
                        success_rate=(st == STATUS_SUCCESS).float().mean(),
                        crash_rate=crash.float().mean())
+        return ts, tuple(carry), metrics
+
+    def train_step(self, ts: TrainState, env_state, obs: torch.Tensor,
+                   split: Optional[Dict[str, float]] = None):
+        """One rollout + PPO update: ``(ts, env_state, obs, metrics)``, the
+        metrics 0-d tensors on the device. Given a ``split`` dict, it waits
+        for the device before, between and after the two halves and stores
+        their seconds there as ``rollout_s`` and ``update_s`` (GAE included)."""
+        ts, (env_state, obs), metrics = self._train(ts, (env_state, obs), split)
         return ts, env_state, obs, metrics
 
 

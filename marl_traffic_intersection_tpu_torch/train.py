@@ -18,19 +18,23 @@ and after the two). ``--profile TRACE`` profiles the last update with
 torch.profiler, prints its device busy share, launches and top kernels as a
 JSON line and writes its Chrome trace to TRACE.
 
+``--model gru`` trains the recurrent family with the truncated-BPTT learner
+(parallel/recurrent_ppo.py); its hidden state joins the rollout's carries.
+
 ``--checkpoint DIR`` saves a full training snapshot there at the end (and
 every ``--checkpoint-every`` updates): model and Adam state, the update
-counters, the env state and observation, and the state of every
-torch.Generator (action noise, minibatch permutations, route and NPC spawn
-draws), so a resumed run continues the uninterrupted one exactly. Restarting
+counters, the env state and observation (and the GRU's hidden state), and
+the state of every torch.Generator (action noise, minibatch permutations,
+route and NPC spawn draws), so a resumed run continues the uninterrupted one
+exactly. Restarting
 the same command auto-resumes from DIR and counts the restored updates toward
 ``--updates``; an explicit ``--resume DIR`` is a warm start whose restored
 counter is an offset, and ``--updates`` more run on top of it.
 
 ``--lidar-impl`` is accepted for train.py's sake: every choice runs kernel
 K1 (the JAX package's lidar variants are bit-identical). Not here yet:
-``--tp`` and ``--distributed`` (multi-GPU, ROADMAP queue 1 item 14), ``--tb``
-(TensorBoard logging, item 15), and ``--model gru`` (item 13).
+train.py's ``--tp`` and ``--distributed`` (multi-GPU, ROADMAP queue 1 item
+14) and ``--tb`` (TensorBoard logging, item 15).
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from .envs.normalize import RewardNormVecEnv
 from .envs.vector import VectorEnv
 from .models import make_model
 from .parallel.ppo import PPOConfig, PPOLearner, read_metrics
+from .parallel.recurrent_ppo import RecurrentPPOLearner
 from .utils.checkpoint import (checkpoint_exists, env_state_from_dict, env_state_to_dict,
                                restore_checkpoint, save_checkpoint)
 from .utils.profiling import StepsPerSecond, profile_steps
@@ -135,6 +140,7 @@ def main(argv=None):
                          "trace to TRACE (.json or .json.gz)")
     args = ap.parse_args(argv)
     args.log_every = max(1, args.log_every)
+    recurrent = args.model == "gru"
 
     dev = resolve_device(args.device)
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -147,7 +153,7 @@ def main(argv=None):
         kv = dict(p.split("=") for p in args.reward.split(","))
         reward = RewardParams(**{k: float(np.float32(v)) for k, v in kv.items()})
 
-    ts, learner, state, obs = None, None, None, None
+    ts, learner, carry = None, None, None
     start_update = 0
     # Preemption resilience: when the --checkpoint directory already holds a
     # snapshot and no --resume was given, continue from it; restarting the
@@ -165,13 +171,16 @@ def main(argv=None):
     def save(u):
         if not args.checkpoint:
             return
-        save_checkpoint(args.checkpoint, {
+        snapshot = {
             "model": ts.model.state_dict(), "optimizer": ts.optimizer.state_dict(),
             "update": u, "update_count": ts.update_count,
-            "env_state": env_state_to_dict(state), "obs": obs,
+            "env_state": env_state_to_dict(carry[0]), "obs": carry[1],
             "generators": {"noise": learner.noise_generator.get_state(),
                            "perm": learner.perm_generator.get_state(),
-                           "routes": learner.env.generator.get_state()}})
+                           "routes": learner.env.generator.get_state()}}
+        if recurrent:
+            snapshot["h"] = carry[2]
+        save_checkpoint(args.checkpoint, snapshot)
         print(f"saved {args.checkpoint} @ update {u}")
 
     # Budget: an auto-resume counts the restored updates toward the absolute
@@ -203,7 +212,8 @@ def main(argv=None):
                          seed=args.seed + 1 + stage_idx)
         if args.norm_reward:
             venv = RewardNormVecEnv(venv)
-        prev, learner = learner, PPOLearner(venv, model, PPOConfig(
+        learner_cls = RecurrentPPOLearner if recurrent else PPOLearner
+        prev, learner = learner, learner_cls(venv, model, PPOConfig(
             rollout_len=rollout_len, lr=lr, ent_coef=ent_coef,
             critic_warmup=args.critic_warmup), seed=args.seed + 2)
 
@@ -227,12 +237,14 @@ def main(argv=None):
                               "density": density, "ent_coef": ent_coef, "lr": lr,
                               "updates": updates}))
 
-        state, obs = venv.reset()
+        # the rollout's carries: env state, observation [, GRU hidden state]
+        carry = list(venv.reset()) + ([learner.initial_hidden()] if recurrent else [])
         if resume is not None and "env_state" in resume and start_update > stage_lo:
             # mid-stage full snapshot: restore the rollout's carries so the
             # resumed run continues the uninterrupted one exactly
-            state = env_state_from_dict(resume["env_state"], dev)
-            obs = resume["obs"].to(dev)
+            carry[:2] = env_state_from_dict(resume["env_state"], dev), resume["obs"].to(dev)
+            if recurrent:
+                carry[2] = resume["h"].to(dev)
             gens = resume["generators"]
             learner.noise_generator.set_state(gens["noise"])
             learner.perm_generator.set_state(gens["perm"])
@@ -249,13 +261,13 @@ def main(argv=None):
             if args.profile and u == last and stage_idx == len(stages) - 1:
                 out = []
                 prof = profile_steps(
-                    lambda: out.append(learner.train_step(ts, state, obs, split)), 1,
+                    lambda: out.append(learner.train_step(ts, *carry, split)), 1,
                     trace=args.profile)
-                ts, state, obs, metrics = out[0]
+                ts, *carry, metrics = out[0]
                 prof["top_kernels"] = prof["top_kernels"][:6]
                 print(json.dumps({"profile": prof}), flush=True)
             else:
-                ts, state, obs, metrics = learner.train_step(ts, state, obs, split)
+                ts, *carry, metrics = learner.train_step(ts, *carry, split)
             if log_point:
                 m = read_metrics(metrics)      # one copy from the device
                 meter.tick()

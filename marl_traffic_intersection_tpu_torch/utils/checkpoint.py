@@ -1,12 +1,24 @@
-"""Checkpoint/restore of a training snapshot, with torch.save.
+"""Checkpoint/restore of a training snapshot, with torch.save, and the
+shipped policies.
 
 The port's counterpart of marl_traffic_intersection_tpu/utils/checkpoint.py,
-without orbax (reading the JAX package's orbax artifacts is ROADMAP queue 1
-item 10). A checkpoint is a directory holding one file written by
+without orbax. A checkpoint is a directory holding one file written by
 ``torch.save``: a nested dict of tensors, numbers and strings, which
 ``torch.load(weights_only=True)`` reads back without unpickling code. The
 file is written beside its final name and renamed over it, so a run killed
 while saving leaves the previous checkpoint whole.
+
+The JAX package ships its trained policies as orbax OCDBT stores
+(``artifacts/policy_*``), whose compressed B-tree the port does not read.
+Their weights are committed beside the port instead, one uncompressed numpy
+``.npz`` per artifact in ``artifacts/`` of this package, made from the stores
+by ``python -m tests._torch_port export-policies`` and held bit for bit
+against them by ``tests/test_torch_artifacts.py``. An export's keys are the
+flax paths joined by ``/`` under ``params`` (PPO families) or
+``actor_params`` and ``q_params`` (SAC); Adam's state is not exported.
+``load_policy`` and ``load_sac`` read a port snapshot or a shipped export
+(``artifacts/policy_gru_multi`` and ``policy_gru_multi`` both name the
+export ``policy_gru_multi.npz``).
 
 ``env_state_to_dict`` / ``env_state_from_dict`` turn the env's state (an
 ``EnvState`` with its NPC pool, or a ``NormState`` around one) into such a
@@ -16,15 +28,20 @@ from __future__ import annotations
 
 import os
 import pathlib
-from typing import Any
+from typing import Any, Callable, Tuple
 
+import numpy as np
 import torch
 
+from ..convert import params_from_flax, sac_actor_params_from_flax, sac_critic_params_from_flax
 from ..core.env import EgoState, EnvState
 from ..core.npc import NpcState
 from ..envs.normalize import NormState
+from ..models import make_model
+from ..models.sac import TwinQCritic
 
 FILE = "checkpoint.pt"
+EXPORTS = pathlib.Path(__file__).resolve().parents[1] / "artifacts"
 
 
 def checkpoint_exists(path: str) -> bool:
@@ -72,3 +89,77 @@ def env_state_from_dict(d: dict, device):
     if "norm.ret" not in t:
         return es
     return NormState(env_state=es, **{f: t[f"norm.{f}"] for f in ("ret", "count", "mean", "m2")})
+
+
+def read_export(path) -> dict:
+    """A shipped policy's ``.npz`` export as a nested dict of float32 arrays."""
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = z[key]
+    return tree
+
+
+def _resolve(path) -> Tuple[str, pathlib.Path]:
+    """("snapshot", directory) for a checkpoint of the port, ("export", file)
+    for a shipped policy: an ``.npz`` file, or a bare name or
+    ``artifacts/<name>`` naming one of the committed exports.
+    FileNotFoundError naming both places otherwise, so that a run directory
+    that happens to share a shipped policy's name never loads its weights."""
+    p = pathlib.Path(path)
+    if checkpoint_exists(p):
+        return "snapshot", p
+    shipped = len(p.parts) == 1 or p.parent.name == "artifacts"
+    export = p if p.suffix == ".npz" and p.is_file() \
+        else EXPORTS / f"{p.name.removesuffix('.npz')}.npz"
+    if export.is_file() and (export == p or shipped):
+        return "export", export
+    raise FileNotFoundError(f"no policy at {path}: neither a checkpoint of the port "
+                            f"({p / FILE}) nor a shipped policy's export ({export})")
+
+
+def load_sac(path, device="cpu") -> Tuple[torch.nn.Module, TwinQCritic]:
+    """The SAC actor and twin critic of a checkpoint of the port's train_sac
+    or of a shipped SAC export, on ``device``."""
+    kind, p = _resolve(path)
+    if kind == "snapshot":
+        tree = restore_checkpoint(p)
+        actor, critic = make_model("sac"), TwinQCritic()
+        actor.load_state_dict(tree["actor_params"])
+        critic.load_state_dict(tree["q_params"])
+    else:
+        tree = read_export(p)
+        actor = sac_actor_params_from_flax(tree["actor_params"])
+        critic = sac_critic_params_from_flax(tree["q_params"])
+    return actor.to(device), critic.to(device)
+
+
+def load_policy(path, model_kind: str, device="cpu") -> Tuple[torch.nn.Module, Callable]:
+    """A trained policy of family ``model_kind`` for deterministic inference,
+    from a checkpoint of the port (train, or train_sac for 'sac') or a
+    shipped export: ``(model on device, mean_fn)``. ``mean_fn(obs)`` is the
+    pre-tanh action mean; for 'gru', ``mean_fn(obs, h)`` returns ``(mean,
+    h_new)`` and the caller carries the hidden state."""
+    if model_kind == "sac":
+        model = load_sac(path, device)[0]
+    else:
+        kind, p = _resolve(path)
+        if kind == "snapshot":
+            model = make_model(model_kind)
+            model.load_state_dict(restore_checkpoint(p)["model"])
+        else:
+            model = params_from_flax(model_kind, read_export(p)["params"])
+        model = model.to(device)
+    model.eval()
+    if model_kind == "gru":
+        def mean_fn(obs, h):
+            mean, _, _, h_new = model(obs, h)
+            return mean, h_new
+    else:
+        def mean_fn(obs):
+            return model(obs)[0]
+    return model, torch.no_grad()(mean_fn)

@@ -9,7 +9,9 @@ the observations the jitted step would have returned.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -238,3 +240,53 @@ def lockstep_traffic(routes, steps, density, *, spawn_every=None, seed=0, num_la
         port_steps.append((ps, pout))
     compare_runs(jax_steps, port_steps, True, jenv, squeeze=True)
     return with_npcs
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARTIFACTS = ROOT / "artifacts"
+EXPORTS = ROOT / "marl_traffic_intersection_tpu_torch" / "artifacts"
+EXPORT_GROUPS = ("params", "actor_params", "q_params")
+
+
+def shipped_policies() -> list:
+    """The names of the JAX package's shipped orbax artifacts."""
+    return sorted(p.name for p in ARTIFACTS.glob("policy_*") if p.is_dir())
+
+
+def export_leaves(checkpoint: dict) -> dict:
+    """What an export holds of a restored checkpoint: each group of
+    ``EXPORT_GROUPS`` it has, its flax collection level (``params``) dropped,
+    as {path joined by '/': float32 array}."""
+    out = {}
+    for group in EXPORT_GROUPS:
+        if group not in checkpoint:
+            continue
+        for path, leaf in jax.tree_util.tree_flatten_with_path(checkpoint[group]["params"])[0]:
+            key = "/".join([group] + [str(k.key) for k in path])
+            out[key] = np.asarray(leaf, np.float32)
+    return out
+
+
+def export_policies(out_dir=EXPORTS) -> list:
+    """Write one uncompressed ``.npz`` per shipped artifact into ``out_dir``,
+    read through the JAX package's ``restore_checkpoint``; returns the paths."""
+    from marl_traffic_intersection_tpu.utils.checkpoint import restore_checkpoint
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    written = []
+    for name in shipped_policies():
+        leaves = export_leaves(restore_checkpoint(str(ARTIFACTS / name)))
+        np.savez(out / f"{name}.npz", **leaves)
+        written.append(out / f"{name}.npz")
+    return written
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description="helpers of the port's tests")
+    ap.add_argument("command", choices=["export-policies"])
+    ap.add_argument("--out", default=str(EXPORTS), help="directory of the .npz exports")
+    args = ap.parse_args()
+    jax.config.update("jax_platforms", "cpu")
+    for path in export_policies(args.out):
+        print(path.relative_to(ROOT) if path.is_relative_to(ROOT) else path,
+              path.stat().st_size, "bytes")

@@ -156,11 +156,13 @@ def test_converters_reject_a_tree_that_does_not_fit(kind):
         params_from_flax(kind, bad)
 
 
-def test_make_model_seeds_and_refuses_gru():
+def test_make_model_seeds_every_family():
+    """Seeded families; 'gru' and 'sac' are families now (the recurrent
+    learner and SAC are ported), an unknown name is refused."""
     a, b = make_model("conv", seed=1), make_model("conv", seed=1)
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
     assert not torch.equal(a.fuse.weight, make_model("conv", seed=2).fuse.weight)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model("gru")
+    assert not torch.equal(make_model("gru", seed=1).gru.w_hh, make_model("gru", seed=2).gru.w_hh)
+    assert make_model("sac").log_std.out_features == 2
     with pytest.raises(ValueError):
         make_model("transformer")

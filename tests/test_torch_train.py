@@ -81,10 +81,6 @@ def test_parse_curriculum_rejects_what_train_py_rejects(spec):
         train.parse_curriculum(spec)
 
 
-@pytest.mark.parametrize("args", [["--model", "gru"]])
-def test_outside_the_slice_raises_naming_roadmap(args):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(SMALL + ["--updates", "1"] + args)
 
 
 @pytest.mark.parametrize("spec", ["traffic=1,density=0.2@1", "agents=1@1;traffic=1,density=2@1"])
