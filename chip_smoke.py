@@ -81,6 +81,28 @@ Phases, one line each; any failure exits nonzero:
               64 x 4 x 16 CPU trajectories on the card and on the CPU in
               float32 (injected permutations, indices and noise): parameters
               within 1e-5 and Adam's moments within 1e-4 of their largest
+ 10. resume   the fine-tune that made policy_attn_multi, train --model attention
+              --resume policy_attn_cfg1 --agents 4 --ent-coef 0.001 --lr 1e-4
+              --updates 2 at train's default width (1024 x 4, rollout 64): the
+              first update is the store's and Adam resumes at the store's step
+              count, the minibatch counter from 0, finite losses, K1 launched 64
+              x 2 times and every kernel at least once; the split, env-steps/s and
+              peak memory; warm_start_central from policy_mlp_cfg1, then train
+              --model central --resume DIR --critic-warmup 1 --updates 2 (the
+              actor held on the first update); one float32 update resumed from
+              policy_mlp_cfg1 on a fixed 64 x 1 x 16 config-1 CPU trajectory on
+              the card and on the CPU, parameters within 1e-5 and Adam's moments
+              within 1e-4 of their largest
+ 11. gym      GymIntersectionEnv on config 1, 200 steps of seeded random actions
+              (reset when an episode ends) on the card and on the CPU: obs,
+              rewards, done and status bit-equal, K1 once per step at 1x1 M=1,
+              every kernel launched, K1 and the libm kernels on the last step's
+              operands bit-equal to their plain versions; the median wall ms per
+              step on the card, on the CPU and with backend="native" (2000
+              steps); evaluate --config 1 --episodes 3 with --policy scripted and
+              with policy_mlp_cfg1 on the card, every episode a success; 200
+              steps of config 2 (traffic), finite, K1 once per step at M=33 and
+              bit-equal to its plain version there
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
 
@@ -95,7 +117,9 @@ launches, "launches_train" those of the train phase's 3 updates,
 "launches_eval_config4" those of 200 config-4 evaluate steps with the GRU
 policy, "launches_gru_train" those of the 3 GRU updates at 4096 x 4 (and
 their reset's observation), "launches_sac_train" those of train_sac at
-256 x 2: 16 demo steps, then 40 calls of 8 env steps and updates.
+256 x 2: 16 demo steps, then 40 calls of 8 env steps and updates,
+"launches_resume" those of the 2 resumed attention updates at 1024 x 4, and
+"launches_gym" those of the 200 config-1 gym steps on the card.
 """
 from __future__ import annotations
 
@@ -506,7 +530,8 @@ def main() -> int:
     phase("main", f"64x4, 100 steps: card run bit-equal to the CPU run ({len(runs['cpu'])} tensors)")
 
     for name, fn in (("train", train_phase), ("traffic", traffic_phase),
-                     ("policies", policies_phase), ("learners", learners_phase)):
+                     ("policies", policies_phase), ("learners", learners_phase),
+                     ("resume", resume_phase), ("gym", gym_phase)):
         t0 = time.perf_counter()
         if fn(dev, card, kernels):
             return 1
@@ -610,7 +635,7 @@ def train_phase(dev, card, kernels) -> int:
                                           os.path.join(TRACES, "train_mlp.json.gz")])
         saved = restore_checkpoint(argv[-1])
         if ([ln["update"] for ln in resumed] != [3] or not losses_finite(resumed)
-                or saved["update"] != 4 or saved["update_count"] != 4 * 16):
+                or saved["update"] != 4 or saved["update_count"] != 16):
             phase("train", f"FAIL: the auto-resumed run logged {resumed}, saved update "
                            f"{saved['update']} count {saved['update_count']}")
             return 1
@@ -1236,7 +1261,7 @@ def learners_phase(dev, card, kernels) -> int:
     k1 = launches.get("lidar_scan", 0)
     if (len(logs) != 3 or not losses_finite(logs) or k1 != 3 * T
             or [ln["update"] for ln in resumed] != [3] or not losses_finite(resumed)
-            or saved["update_count"] != 4 * 16 or tuple(saved["h"].shape) != (B, N, 128)):
+            or saved["update_count"] != 16 or tuple(saved["h"].shape) != (B, N, 128)):
         phase("learners", f"FAIL: train --model gru logged {len(logs)} + {len(resumed)} lines, "
                           f"K1 launched {k1} times (want {3 * T}), saved update_count "
                           f"{saved['update_count']}")
@@ -1397,6 +1422,230 @@ def card_vs_cpu_learners(dev) -> int:
     fresh.append(fresh[1])
     if not compare("SAC, a 64x4x16 ring, 8 updates", models, opts, fresh):
         return 1
+    return 0
+
+
+def resume_phase(dev, card, kernels) -> int:
+    """Phase 10 (see the module docstring); 1 on failure."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch import warm_start_central
+    from marl_traffic_intersection_tpu_torch.models import make_model
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import (PPOConfig, PPOLearner,
+                                                                  TrainState, Transition)
+    from marl_traffic_intersection_tpu_torch.utils.checkpoint import (load_train_state,
+                                                                      restore_checkpoint)
+
+    store = load_train_state("policy_attn_cfg1", "attention")
+    count = int(next(iter(store.optimizer.state.values()))["step"])
+    T = 64                                   # train's default rollout
+    with tempfile.TemporaryDirectory() as tmp:
+        # the fine-tune recipe that made policy_attn_multi, at train's default width
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        logs, _ = run_train(["--model", "attention", "--resume", "policy_attn_cfg1",
+                             "--agents", "4", "--ent-coef", "0.001", "--lr", "1e-4",
+                             "--updates", "2", "--log-every", "1",
+                             "--checkpoint", os.path.join(tmp, "attn")], "resume")
+        torch.cuda.synchronize()
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        saved = restore_checkpoint(os.path.join(tmp, "attn"))
+        steps = {int(st["step"]) for st in saved["optimizer"]["state"].values()}
+        if ([ln["update"] for ln in logs] != [store.update, store.update + 1]
+                or not losses_finite(logs) or saved["update"] != store.update + 2
+                or saved["update_count"] != 32 or steps != {count + 32}
+                or launches.get("lidar_scan", 0) != 2 * T):
+            phase("resume", f"FAIL: the attention fine-tune logged {logs}, saved update "
+                            f"{saved['update']} count {saved['update_count']}, Adam steps "
+                            f"{steps} (want {count + 32}), K1 launched "
+                            f"{launches.get('lidar_scan', 0)} times (want {2 * T})")
+            return 1
+        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        if missing:
+            phase("resume", f"FAIL: kernels not launched in the fine-tune: {missing}")
+            return 1
+        for k in kernels:
+            kernels[k]["launches_resume"] = launches[k]
+        roll = [ln["rollout_s"] for ln in logs]
+        upd = [ln["update_s"] for ln in logs]
+        phase("resume", f"train --model attention --resume policy_attn_cfg1 --agents 4 "
+                        f"--ent-coef 0.001 --lr 1e-4, 1024 x 4, rollout {T}: the first update "
+                        f"is {logs[0]['update']} (the store's update) with Adam at step "
+                        f"{count} (the store's count); rollout s {roll}, update s {upd}; "
+                        f"env-steps/s by update {[ln['env_steps_per_s'] for ln in logs]} (the "
+                        f"second: {1024 * T / (roll[1] + upd[1]):.1f} from the split); peak "
+                        f"memory {peak / 2**20:.1f} MiB; launches {launches}; card {card}")
+
+        # MAPPO from the trained mlp: the transplant, then the warm-up resume
+        out = os.path.join(tmp, "central_warm")
+        json_lines(warm_start_central.main, ["--source", "policy_mlp_cfg1", "--out", out,
+                                             "--agents", "4"], "resume")
+        logs, _ = run_train(["--model", "central", "--resume", out, "--critic-warmup", "1",
+                             "--updates", "2", "--log-every", "1"], "resume")
+        if [ln["update"] for ln in logs] != [0, 1] or not losses_finite(logs) \
+                or abs(logs[0]["approx_kl"]) > 1e-4:
+            phase("resume", f"FAIL: train --model central from the warm start logged {logs}")
+            return 1
+        phase("resume", f"warm_start_central then train --model central --critic-warmup 1: "
+                        f"approx_kl by update {[ln['approx_kl'] for ln in logs]} (the actor "
+                        f"held on the first), env-steps/s "
+                        f"{[ln['env_steps_per_s'] for ln in logs]}")
+
+    # one float32 update resumed from policy_mlp_cfg1 on a fixed config-1
+    # CPU trajectory (the observations the store was trained on: its weights
+    # on the neighbour slots have a zero second moment, tests/test_torch_resume.py),
+    # on the CPU and on the card
+    PARAM_TOL, MOMENT_TOL = 1e-5, 1e-4
+    cfg16 = PPOConfig(rollout_len=16)
+    g = torch.Generator().manual_seed(9)
+    perms = [torch.randperm(16, generator=g) for _ in range(cfg16.update_epochs)]
+    f32 = dict(compute_dtype=torch.float32)
+    one = EnvConfig(num_agents=1)
+    updated = {}
+    for d in ("cpu", dev):
+        st = load_train_state("policy_mlp_cfg1", "mlp", model=make_model("mlp", **f32).to(d))
+        queue = [p.to(d) for p in perms]
+        env = IntersectionEnv(one, device=d)
+        ven = VectorEnv(env, num_envs=64, seed=3,
+                        route_pool=env.table.route_ids([("IN_6", "OUT_2")]))
+        lrn = PPOLearner(ven, st.model, cfg16, seed=4, perm_fn=lambda n, q=queue: q.pop(0))
+        ts = TrainState(st.model, st.optimizer, 0)
+        start = int(next(iter(st.optimizer.state.values()))["step"])
+        if d == "cpu":
+            s0, o0 = ven.reset()
+            _, _, traj_cpu, lv = lrn._rollout(ts.model, s0, o0)
+            advs_cpu, rets_cpu = lrn._gae(traj_cpu, lv)
+            before = {k: v.detach().clone() for k, v in ts.model.named_parameters()}
+        ts, _ = lrn._update(ts, Transition(*(t.to(d) for t in traj_cpu)), advs_cpu.to(d),
+                            rets_cpu.to(d))
+        opt = ts.optimizer.state
+        updated[str(d)] = {k: [v.detach().cpu()] + [opt[v][m].cpu() for m in ("exp_avg",
+                                                                               "exp_avg_sq")]
+                           for k, v in ts.model.named_parameters()}
+    cpu, gpu = updated["cpu"], updated[str(dev)]
+    diff = max(float((cpu[k][0] - gpu[k][0]).abs().max()) for k in cpu)
+    mdiff = max(float((cpu[k][i] - gpu[k][i]).abs().max() / cpu[k][i].abs().max().clamp_min(1e-30))
+                for k in cpu for i in (1, 2))
+    moved = max(float((cpu[k][0] - before[k]).abs().max()) for k in cpu)
+    msg = (f"policy_mlp_cfg1 resumed, 64x1x16 config-1 CPU trajectory, one update (16 Adam "
+           f"steps from step {start}, float32): card vs CPU "
+           f"parameters within {diff:.3g} (tolerance {PARAM_TOL}), Adam moments within "
+           f"{mdiff:.3g} of their largest (tolerance {MOMENT_TOL}); the update moved the "
+           f"parameters up to {moved:.3g}")
+    if not (diff <= PARAM_TOL and mdiff <= MOMENT_TOL and moved > 10 * PARAM_TOL):
+        phase("resume", "FAIL: " + msg)
+        return 1
+    phase("resume", msg)
+    return 0
+
+
+def random_actions(rng, n):
+    """Seeded (n, 2) actions: throttle from a few levels, steer normal."""
+    return np.stack([rng.choice([0.0, 0.5, 1.0, -0.5], n),
+                     np.clip(rng.normal(0, 0.4, n), -1, 1)], axis=1).astype(np.float32)
+
+
+def gym_run(config, device, steps, seed=0):
+    """``steps`` steps of a GymIntersectionEnv of ``config`` on ``device``
+    with seeded random actions, reset whenever an episode ends: (the obs,
+    reward and status of every step, each step's wall ms)."""
+    from marl_traffic_intersection_tpu_torch import STATUS_NAMES
+    from marl_traffic_intersection_tpu_torch.envs.gym import GymIntersectionEnv
+
+    env = GymIntersectionEnv({**config, "device": device} if device != "native"
+                             else {**config, "device": "cpu", "backend": "native"})
+    obs, _ = env.reset(seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    hist, wall = [obs], []
+    for _ in range(steps):
+        a = random_actions(rng, env.num_agents)
+        t0 = time.perf_counter()
+        obs, rew, term, trunc, info = env.step(a[0] if env.traffic_flow else a)
+        wall.append(1e3 * (time.perf_counter() - t0))
+        hist += [obs, np.asarray(rew, np.float32), np.asarray(info["done"]),
+                 np.asarray([STATUS_NAMES.index(x) for x in info["status"]])]
+        if term or trunc:
+            obs, _ = env.reset()
+            hist.append(obs)
+    return hist, wall
+
+
+def k1_times(args, kernels, tag):
+    """K1 on ``args`` (the arguments of one of its launches): device, plain
+    and bound ms stored in the kernels line under ``*_{tag}``, as a phrase."""
+    from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
+    from marl_traffic_intersection_tpu_torch.ops import lidar_cuda
+
+    _, samples = lidar_scan_ref(*args, return_samples=True)
+    (B, N), M = args[0].shape, args[3].shape[1]
+    bound, by = k1_bound(B, N, M, samples)
+    k = kernels["lidar_scan"]
+    k.update({f"ms_{tag}": device_ms(lambda: lidar_cuda.lidar_scan(*args), 50, "lidar_kernel"),
+              f"plain_ms_{tag}": cuda_ms(lambda: lidar_scan_ref(*args), 20),
+              f"bound_ms_{tag}": bound, f"bound_by_{tag}": by})
+    return (f"K1 at {B}x{N} M={M}: device {k[f'ms_{tag}']:.5f} ms, plain "
+            f"{k[f'plain_ms_{tag}']:.3f} ms, bound {bound:.7f} ms ({by})")
+
+
+def gym_phase(dev, card, kernels) -> int:
+    """Phase 11 (see the module docstring); 1 on failure."""
+    from marl_traffic_intersection_tpu_torch import evaluate
+    from marl_traffic_intersection_tpu_torch.ops import native
+
+    config1 = {"ego_routes": [("IN_6", "OUT_2")]}
+    runs = {}
+    native.reset_launches()
+    with k1_counted() as rec:
+        runs["card"] = gym_run(config1, str(dev), 200)
+    launches = dict(native.LAUNCHES)
+    held, bad = held_to_plain(rec, kernels)
+    runs["cpu"] = gym_run(config1, "cpu", 200)
+    runs["native"] = gym_run(config1, "native", 2000)
+    card_h, cpu_h = runs["card"][0], runs["cpu"][0]
+    differ = [i for i, (a, b) in enumerate(zip(card_h, cpu_h))
+              if a.shape != b.shape or not np.array_equal(a.view(np.uint8), b.view(np.uint8))]
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if (len(card_h) != len(cpu_h) or differ or dict(rec.by_m) != {1: 200}
+            or launches.get("lidar_scan", 0) != 200 or missing or bad):
+        phase("gym", f"FAIL: config-1 gym, 200 steps: card vs CPU differ in {len(differ)} of "
+                     f"{len(cpu_h)} arrays; K1 launches by M {dict(rec.by_m)}; kernels not "
+                     f"launched {missing}; {bad}")
+        return 1
+    for k in kernels:
+        kernels[k]["launches_gym"] = launches[k]
+    med = {k: float(np.median(runs[k][1])) for k in runs}
+    phase("gym", f"GymIntersectionEnv config 1, 200 steps with seeded random actions: the "
+                 f"card's obs, rewards, done and status bit-equal to the CPU's ({len(cpu_h)} "
+                 f"arrays); K1 once per step (1x1 M=1) and every kernel launched ({launches}); "
+                 f"the kernels on the last step's operands bit-equal to their plain versions: "
+                 f"{held}; {k1_times(rec.args, kernels, 'gym')}; median wall ms per step: "
+                 f"card {med['card']:.4f}, CPU {med['cpu']:.4f}, native engine "
+                 f"{med['native']:.5f} (2000 steps); card {card}")
+
+    for argv in (["--policy", "scripted"],
+                 ["--policy", "checkpoint", "--checkpoint", "policy_mlp_cfg1"]):
+        got = json_lines(evaluate.main, ["--config", "1", "--episodes", "3", *argv], "gym")[-1]
+        if not (got["successes"] == 3 and got["agents_succeeded_frac"] == 1.0
+                and got["crashes_vehicle"] == got["crashes_object"] == 0
+                and got["device"] != "cpu"):
+            phase("gym", f"FAIL: evaluate --episodes 3 {' '.join(argv)}: {got}")
+            return 1
+
+    config2 = {"traffic_flow": True, "traffic_density": 0.5, "ego_routes": [("IN_6", "OUT_2")]}
+    with k1_counted() as rec:
+        hist, wall = gym_run(config2, str(dev), 200)
+    held, bad = held_to_plain(rec, {k: v for k, v in kernels.items() if k == "lidar_scan"})
+    finite = all(np.isfinite(h).all() for h in hist)
+    if not finite or dict(rec.by_m) != {33: 200} or bad:
+        phase("gym", f"FAIL: config-2 gym: finite {finite}, K1 launches by M "
+                     f"{dict(rec.by_m)}; {bad}")
+        return 1
+    phase("gym", f"GymIntersectionEnv config 2 (traffic, density 0.5), 200 steps: finite, K1 "
+                 f"once per step at 1x1 M=33, bit-equal to its plain version ({held}); "
+                 f"{k1_times(rec.args, kernels, 'gym_traffic')}; median wall ms per step "
+                 f"{float(np.median(wall)):.4f}; card {card}")
     return 0
 
 

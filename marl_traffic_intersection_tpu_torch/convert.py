@@ -89,18 +89,26 @@ def mlp_params_from_flax(params: Mapping, model: Optional[ActorCriticMLP] = None
             i += 1
         model = ActorCriticMLP(obs_dim=np.shape(p["torso_0"]["kernel"])[0], hidden=hidden,
                                act_dim=np.shape(p["pi_mean"]["kernel"])[1])
+    return _load(params, _mlp_entries(model), model)
+
+
+def _mlp_entries(model: ActorCriticMLP) -> list:
     entries = []
     for i, lin in enumerate(model.torso):
         entries += _dense(f"torso_{i}", lin)
     entries += _dense("pi_mean", model.pi_mean) + _dense("vf", model.vf)
     entries.append(("log_std", model.log_std, _same))
-    return _load(params, entries, model)
+    return entries
 
 
 def conv_params_from_flax(params: Mapping, model: Optional[LidarConvPolicy] = None
                           ) -> LidarConvPolicy:
     """A flax LidarConvPolicy tree into ``model`` (default: a new bf16 one)."""
     model = model if model is not None else LidarConvPolicy()
+    return _load(params, _conv_entries(model), model)
+
+
+def _conv_entries(model: LidarConvPolicy) -> list:
     entries = []
     for i, conv in enumerate(model.ray_conv):
         entries += [(f"ray_conv_{i}/kernel", conv.weight, lambda a: a.transpose(2, 1, 0)),
@@ -108,14 +116,17 @@ def conv_params_from_flax(params: Mapping, model: Optional[LidarConvPolicy] = No
     for name in ("state_proj", "fuse", "pi_mean", "vf"):
         entries += _dense(name, getattr(model, name))
     entries.append(("log_std", model.log_std, _same))
-    return _load(params, entries, model)
+    return entries
 
 
 def attention_params_from_flax(params: Mapping, model: Optional[SceneTransformerPolicy] = None
                                ) -> SceneTransformerPolicy:
     """A flax SceneTransformerPolicy tree into ``model`` (default: a new bf16 one)."""
     model = model if model is not None else SceneTransformerPolicy()
+    return _load(params, _attention_entries(model), model)
 
+
+def _attention_entries(model: SceneTransformerPolicy) -> list:
     def qkv_kernel(a):          # (D, H, Dh) -> (H*Dh, D)
         return a.reshape(a.shape[0], -1).T
 
@@ -142,26 +153,34 @@ def attention_params_from_flax(params: Mapping, model: Optional[SceneTransformer
         entries += layer_norm(f"{b}/LayerNorm_0", blk.ln_0) + layer_norm(f"{b}/LayerNorm_1",
                                                                            blk.ln_1)
         entries += _dense(f"{b}/Dense_0", blk.dense_0) + _dense(f"{b}/Dense_1", blk.dense_1)
-    return _load(params, entries, model)
+    return entries
 
 
 def central_params_from_flax(params: Mapping, model: Optional[CentralizedActorCritic] = None
                              ) -> CentralizedActorCritic:
     """A flax CentralizedActorCritic tree into ``model`` (default: a new bf16 one)."""
     model = model if model is not None else CentralizedActorCritic()
+    return _load(params, _central_entries(model), model)
+
+
+def _central_entries(model: CentralizedActorCritic) -> list:
     entries = []
     for i, lin in enumerate(model.torso):
         entries += _dense(f"torso_{i}", lin)
     for name in ("pi_mean", "critic_embed", "critic_joint", "vf"):
         entries += _dense(name, getattr(model, name))
     entries.append(("log_std", model.log_std, _same))
-    return _load(params, entries, model)
+    return entries
 
 
 def gru_params_from_flax(params: Mapping, model: Optional[RecurrentActorCritic] = None
                          ) -> RecurrentActorCritic:
     """A flax RecurrentActorCritic tree into ``model`` (default: a new bf16 one)."""
     model = model if model is not None else RecurrentActorCritic()
+    return _load(params, _gru_entries(model), model)
+
+
+def _gru_entries(model: RecurrentActorCritic) -> list:
     cell, H = model.gru, model.gru_features
     entries = _dense("torso_0", model.torso_0) + _dense("pi_mean", model.pi_mean) \
         + _dense("vf", model.vf) + [("log_std", model.log_std, _same)]
@@ -172,18 +191,22 @@ def gru_params_from_flax(params: Mapping, model: Optional[RecurrentActorCritic] 
                         (f"gru/i{gate}/bias", cell.b_ih[rows], _same),
                         (f"gru/h{gate}/kernel", cell.w_hh[rows], _transposed)]
     entries.append(("gru/hn/bias", cell.b_hn, _same))
-    return _load(params, entries, model)
+    return entries
 
 
 def sac_actor_params_from_flax(params: Mapping, model: Optional[SquashedGaussianActor] = None
                                ) -> SquashedGaussianActor:
     """A flax SquashedGaussianActor tree into ``model`` (default: a new bf16 one)."""
     model = model if model is not None else SquashedGaussianActor()
+    return _load(params, _sac_actor_entries(model), model)
+
+
+def _sac_actor_entries(model: SquashedGaussianActor) -> list:
     entries = []
     for i, lin in enumerate(model.torso):
         entries += _dense(f"torso_{i}", lin)
     entries += _dense("mean", model.mean) + _dense("log_std", model.log_std)
-    return _load(params, entries, model)
+    return entries
 
 
 def sac_critic_params_from_flax(params: Mapping, model: Optional[TwinQCritic] = None
@@ -201,13 +224,33 @@ def sac_critic_params_from_flax(params: Mapping, model: Optional[TwinQCritic] = 
 FROM_FLAX = {"mlp": mlp_params_from_flax, "conv": conv_params_from_flax,
              "attention": attention_params_from_flax, "central": central_params_from_flax,
              "gru": gru_params_from_flax, "sac": sac_actor_params_from_flax}
+ENTRIES = {"mlp": _mlp_entries, "conv": _conv_entries, "attention": _attention_entries,
+           "central": _central_entries, "gru": _gru_entries, "sac": _sac_actor_entries}
 
 
-def params_from_flax(kind: str, params: Mapping, model: Optional[torch.nn.Module] = None
-                     ) -> torch.nn.Module:
-    """The flax tree of family ``kind`` in the port's module of that family."""
+def leaf_paths(tree: Mapping, prefix: str = "") -> set:
+    """The '/'-joined paths of a nested dict's leaves."""
+    out = set()
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        out |= leaf_paths(v, path + "/") if isinstance(v, Mapping) else {path}
+    return out
+
+
+def params_from_flax(kind: str, params: Mapping, model: Optional[torch.nn.Module] = None,
+                     strict: bool = False) -> torch.nn.Module:
+    """The flax tree of family ``kind`` in the port's module of that family.
+    ``strict``: the tree must hold exactly the leaves the family reads, so a
+    store of another family raises ValueError even where its leaves that this
+    family reads happen to fit."""
     if model is None:
         model = make_model(kind)
+    if strict:
+        want = {path for path, _, _ in ENTRIES[kind](model)}
+        have = leaf_paths(params.get("params", params))
+        if want != have:
+            raise ValueError(f"not a {kind!r} store: its leaves {sorted(have ^ want)[:4]} ... "
+                             f"differ from the family's")
     return FROM_FLAX[kind](params, model)
 
 

@@ -68,7 +68,9 @@ def obstacle_boxes(sx, sy, sh, ox, oy, oh, om):
 
 
 def lidar_scan_ref(sx, sy, sh, ox, oy, oh, om, num_lanes: int = 3,
-                   return_samples: bool = False):
+                   return_samples: bool = False, rays: int = LIDAR_RAYS,
+                   fov_deg: float = LIDAR_FOV_DEG, max_dist: float = LIDAR_MAX_DIST,
+                   step_size: float = LIDAR_STEP):
     """Batched dense march.
 
     sx, sy, sh: (B, N) float32 scanner poses; ox, oy, oh: (B, M) float32 and
@@ -76,11 +78,22 @@ def lidar_scan_ref(sx, sy, sh, ox, oy, oh, om, num_lanes: int = 3,
     distances (4*k for a hit at sample k, 250 with no hit) and, with
     ``return_samples``, the (B, N, 96) int32 count of samples the reference
     marches on each ray (up to and including the first event; 63 without
-    one), the work measure of the kernel's bound.
+    one), the work measure of the kernel's bound. ``rays``, ``fov_deg``,
+    ``max_dist`` and ``step_size`` describe another sensor than the env's
+    (the reference's standalone Lidar defaults to 72 rays, compat.py), which
+    marches ceil(max_dist / step_size) samples.
     """
     dev = sx.device
-    rel = libm.table(REL_ANGLES, dev)
-    dists = libm.table(DISTS, dev)
+    if (rays, fov_deg, max_dist, step_size) == (LIDAR_RAYS, LIDAR_FOV_DEG, LIDAR_MAX_DIST,
+                                                LIDAR_STEP):
+        rel = libm.table(REL_ANGLES, dev)
+        dists = libm.table(DISTS, dev)
+    else:
+        rel = torch.from_numpy(ray_rel_angles(rays, fov_deg)).to(dev)
+        nsamp = int(np.ceil(max_dist / step_size))
+        dists = torch.from_numpy(np.arange(nsamp, dtype=np.float32)
+                                 * np.float32(step_size)).to(dev)
+    samples_max = dists.shape[0]
     ang = sh[..., None] + rel                                   # (B, N, R)
     dx = libm.cosf(ang)
     dy = -libm.sinf(ang)
@@ -101,12 +114,12 @@ def lidar_scan_ref(sx, sy, sh, ox, oy, oh, om, num_lanes: int = 3,
     event = oob | hit
     any_event = event.any(-1)
     first = torch.where(any_event, event.to(torch.uint8).argmax(-1),
-                        LIDAR_SAMPLES)                          # (B, N, R)
-    first_is_hit = hit.gather(-1, first.clamp_max(LIDAR_SAMPLES - 1)[..., None])[..., 0]
+                        samples_max)                            # (B, N, R)
+    first_is_hit = hit.gather(-1, first.clamp_max(samples_max - 1)[..., None])[..., 0]
     is_hit = any_event & first_is_hit
-    out = torch.where(is_hit, first.to(torch.float32) * float(LIDAR_STEP),
-                      float(LIDAR_MAX_DIST))
+    out = torch.where(is_hit, first.to(torch.float32) * float(np.float32(step_size)),
+                      float(np.float32(max_dist)))
     if return_samples:
-        samples = torch.where(any_event, first + 1, LIDAR_SAMPLES).to(torch.int32)
+        samples = torch.where(any_event, first + 1, samples_max).to(torch.int32)
         return out, samples
     return out

@@ -23,6 +23,7 @@ constant goes in as a tensor on the operand's device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -113,12 +114,16 @@ def sqrtf(x: torch.Tensor) -> torch.Tensor:
 _ON_DEVICE: dict = {}
 
 
+@functools.lru_cache(maxsize=1024)
+def _const(value: float, device: str) -> torch.Tensor:
+    return torch.tensor(np.float32(value), device=device)
+
+
 def const(value: float, device) -> torch.Tensor:
-    """A 0-d float32 tensor holding ``np.float32(value)`` on ``device``."""
-    key = ("const", float(np.float32(value)), str(device))
-    if key not in _ON_DEVICE:
-        _ON_DEVICE[key] = torch.tensor(np.float32(value), device=device)
-    return _ON_DEVICE[key]
+    """A 0-d float32 tensor holding ``np.float32(value)`` on ``device``,
+    made once; the last 1024 values are kept (a real-time loop's step
+    lengths vary without end)."""
+    return _const(float(np.float32(value)), str(device))
 
 
 def table(values: np.ndarray, device) -> torch.Tensor:

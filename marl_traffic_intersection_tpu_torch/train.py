@@ -29,7 +29,23 @@ route and NPC spawn draws), so a resumed run continues the uninterrupted one
 exactly. Restarting
 the same command auto-resumes from DIR and counts the restored updates toward
 ``--updates``; an explicit ``--resume DIR`` is a warm start whose restored
-counter is an offset, and ``--updates`` more run on top of it.
+counter is an offset, and ``--updates`` more run on top of it. ``--resume``
+also takes a shipped policy (``policy_attn_cfg1``, ``artifacts/policy_attn_cfg1``
+or its ``.npz`` export), as train.py resumes an orbax store: its weights, its
+Adam moments and step count (utils/checkpoint.py::load_train_state), and its
+update counter as the offset. The store must be of the ``--model`` family.
+Every resume starts the minibatch counter that ``--critic-warmup`` reads from
+0, as train.py does, so a resumed run masks the actor for its first
+``--critic-warmup`` updates; the optimizer takes the stage's ``--lr``.
+
+  # the fine-tune that made policy_attn_multi
+  python -m marl_traffic_intersection_tpu_torch.train --model attention \
+      --resume artifacts/policy_attn_cfg1 --agents 4 --updates 600 --ent-coef 0.001 --lr 1e-4
+  # MAPPO from a trained mlp (warm_start_central.py writes the snapshot)
+  python -m marl_traffic_intersection_tpu_torch.warm_start_central \
+      --source policy_mlp_cfg1 --out runs/central_warm --agents 4
+  python -m marl_traffic_intersection_tpu_torch.train --model central \
+      --resume runs/central_warm --critic-warmup 100
 
 ``--lidar-impl`` is accepted for train.py's sake: every choice runs kernel
 K1 (the JAX package's lidar variants are bit-identical). Not here yet:
@@ -53,7 +69,8 @@ from .models import make_model
 from .parallel.ppo import PPOConfig, PPOLearner, read_metrics
 from .parallel.recurrent_ppo import RecurrentPPOLearner
 from .utils.checkpoint import (checkpoint_exists, env_state_from_dict, env_state_to_dict,
-                               restore_checkpoint, save_checkpoint)
+                               load_train_state, resolve_policy, restore_checkpoint,
+                               save_checkpoint)
 from .utils.profiling import StepsPerSecond, profile_steps
 
 
@@ -130,7 +147,8 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="also save every K updates (fault tolerance)")
     ap.add_argument("--resume", default=None,
-                    help="warm start: restore the model, optimizer and update counter")
+                    help="warm start: restore the model, optimizer and update counter from "
+                         "a checkpoint of this train or a shipped policy (policy_mlp_cfg1)")
     ap.add_argument("--log-every", type=int, default=10,
                     help="read the metrics from the device every K updates; between "
                          "log points the loop does not wait for the device")
@@ -165,7 +183,12 @@ def main(argv=None):
         print(f"auto-resuming from existing checkpoint {args.checkpoint}")
     resume = None
     if args.resume:
-        resume = restore_checkpoint(args.resume)
+        if resolve_policy(args.resume)[0] == "export":
+            store = load_train_state(args.resume, args.model, model=model)
+            resume = {"model": store.model.state_dict(),
+                      "optimizer": store.optimizer.state_dict(), "update": store.update}
+        else:
+            resume = restore_checkpoint(args.resume)
         start_update = int(resume["update"])
 
     def save(u):
@@ -222,7 +245,10 @@ def main(argv=None):
             if resume is not None:
                 ts.model.load_state_dict(resume["model"])
                 ts.optimizer.load_state_dict(resume["optimizer"])
-                ts.update_count = int(resume["update_count"])
+                for group in ts.optimizer.param_groups:
+                    group["lr"] = lr
+                # update_count (the critic warm-up's clock) restarts at 0, as
+                # train.py's resume keeps learner.init's counter
                 print(f"resumed from {args.resume} at update {start_update}")
         else:
             # the policy, Adam's moments and the generators carry over; the

@@ -15,10 +15,15 @@ Their weights are committed beside the port instead, one uncompressed numpy
 by ``python -m tests._torch_port export-policies`` and held bit for bit
 against them by ``tests/test_torch_artifacts.py``. An export's keys are the
 flax paths joined by ``/`` under ``params`` (PPO families) or
-``actor_params`` and ``q_params`` (SAC); Adam's state is not exported.
-``load_policy`` and ``load_sac`` read a port snapshot or a shipped export
-(``artifacts/policy_gru_multi`` and ``policy_gru_multi`` both name the
-export ``policy_gru_multi.npz``).
+``actor_params`` and ``q_params`` (SAC). ``load_policy`` and ``load_sac``
+read a port snapshot or a shipped export (``artifacts/policy_gru_multi`` and
+``policy_gru_multi`` both name the export ``policy_gru_multi.npz``).
+
+Each PPO-family store's Adam state is exported beside its weights, as
+``<name>.adam.npz``: optax's ``count``, its moments ``mu/<flax path>`` and
+``nu/<flax path>``, and the store's ``update``. ``load_train_state`` reads a
+store's weights and Adam state together, for fine-tunes that resume a
+shipped policy; the SAC stores hold no optimizer state.
 
 ``env_state_to_dict`` / ``env_state_from_dict`` turn the env's state (an
 ``EnvState`` with its NPC pool, or a ``NormState`` around one) into such a
@@ -28,7 +33,8 @@ from __future__ import annotations
 
 import os
 import pathlib
-from typing import Any, Callable, Tuple
+import copy
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,7 +110,7 @@ def read_export(path) -> dict:
     return tree
 
 
-def _resolve(path) -> Tuple[str, pathlib.Path]:
+def resolve_policy(path) -> Tuple[str, pathlib.Path]:
     """("snapshot", directory) for a checkpoint of the port, ("export", file)
     for a shipped policy: an ``.npz`` file, or a bare name or
     ``artifacts/<name>`` naming one of the committed exports.
@@ -122,10 +128,53 @@ def _resolve(path) -> Tuple[str, pathlib.Path]:
                             f"({p / FILE}) nor a shipped policy's export ({export})")
 
 
+class ShippedTrainState(NamedTuple):
+    model: torch.nn.Module
+    optimizer: torch.optim.Adam
+    update: int
+
+
+def load_train_state(path, model_kind: str,
+                     model: Optional[torch.nn.Module] = None) -> ShippedTrainState:
+    """A shipped PPO-family store's train state: the model (``model``, or a
+    new one of ``model_kind``) holding its weights, a ``torch.optim.Adam``
+    over it (optax's adam: eps 1e-8, lr 3e-4, train's default; train sets
+    its ``--lr`` in the param groups) whose ``exp_avg`` and
+    ``exp_avg_sq`` are optax's ``mu`` and ``nu`` and whose ``step`` is optax's
+    ``count``, and the store's ``update``.
+
+    The moments are laid out as the parameters are, through the same
+    converter (convert.py) loading them into a copy of the model. A store of
+    another family, or one without an Adam export (SAC), raises ValueError."""
+    kind, p = resolve_policy(path)
+    if kind != "export":
+        raise ValueError(f"{path} is a checkpoint of the port, not a shipped store; "
+                         "restore_checkpoint reads it")
+    adam_file = p.with_name(p.name.removesuffix(".npz") + ".adam.npz")
+    if not adam_file.is_file():
+        raise ValueError(f"{p.name} holds no optimizer state ({adam_file.name} is missing)")
+    model = model if model is not None else make_model(model_kind)
+    params_from_flax(model_kind, read_export(p)["params"], model, strict=True)
+    adam = read_export(adam_file)
+    optimizer = torch.optim.Adam(model.parameters(), lr=3e-4, eps=1e-8)
+    step = float(adam["count"])
+    moments = {}
+    for name in ("mu", "nu"):
+        holder = copy.deepcopy(model)
+        params_from_flax(model_kind, adam[name], holder, strict=True)
+        moments[name] = list(holder.parameters())
+    for param, mu, nu in zip(model.parameters(), moments["mu"], moments["nu"]):
+        optimizer.state[param] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu.detach().to(param.device, copy=True),
+            "exp_avg_sq": nu.detach().to(param.device, copy=True)}
+    return ShippedTrainState(model, optimizer, int(adam["update"]))
+
+
 def load_sac(path, device="cpu") -> Tuple[torch.nn.Module, TwinQCritic]:
     """The SAC actor and twin critic of a checkpoint of the port's train_sac
     or of a shipped SAC export, on ``device``."""
-    kind, p = _resolve(path)
+    kind, p = resolve_policy(path)
     if kind == "snapshot":
         tree = restore_checkpoint(p)
         actor, critic = make_model("sac"), TwinQCritic()
@@ -147,7 +196,7 @@ def load_policy(path, model_kind: str, device="cpu") -> Tuple[torch.nn.Module, C
     if model_kind == "sac":
         model = load_sac(path, device)[0]
     else:
-        kind, p = _resolve(path)
+        kind, p = resolve_policy(path)
         if kind == "snapshot":
             model = make_model(model_kind)
             model.load_state_dict(restore_checkpoint(p)["model"])

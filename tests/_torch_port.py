@@ -267,17 +267,40 @@ def export_leaves(checkpoint: dict) -> dict:
     return out
 
 
+def adam_leaves(checkpoint: dict):
+    """What an Adam export holds of a restored PPO-family checkpoint: Adam's
+    ``count`` and its ``mu`` and ``nu`` (optax's ``opt_state[1][0]``, behind
+    the global-norm clip), the moments keyed as the params are (``mu/<flax
+    path>``, the collection level dropped), and the store's ``update``; None
+    for a store without an optimizer state (SAC)."""
+    if "opt_state" not in checkpoint:
+        return None
+    adam = checkpoint["opt_state"][1][0]
+    out = {"count": np.asarray(adam["count"], np.int32),
+           "update": np.asarray(checkpoint["update"], np.int64)}
+    for group in ("mu", "nu"):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(adam[group]["params"])[0]:
+            out["/".join([group] + [str(k.key) for k in path])] = np.asarray(leaf, np.float32)
+    return out
+
+
 def export_policies(out_dir=EXPORTS) -> list:
     """Write one uncompressed ``.npz`` per shipped artifact into ``out_dir``,
-    read through the JAX package's ``restore_checkpoint``; returns the paths."""
+    and for each PPO-family store a second, ``<name>.adam.npz``, of its Adam
+    state, read through the JAX package's ``restore_checkpoint``; returns the
+    paths."""
     from marl_traffic_intersection_tpu.utils.checkpoint import restore_checkpoint
     out = pathlib.Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     written = []
     for name in shipped_policies():
-        leaves = export_leaves(restore_checkpoint(str(ARTIFACTS / name)))
-        np.savez(out / f"{name}.npz", **leaves)
+        checkpoint = restore_checkpoint(str(ARTIFACTS / name))
+        np.savez(out / f"{name}.npz", **export_leaves(checkpoint))
         written.append(out / f"{name}.npz")
+        adam = adam_leaves(checkpoint)
+        if adam is not None:
+            np.savez(out / f"{name}.adam.npz", **adam)
+            written.append(out / f"{name}.adam.npz")
     return written
 
 

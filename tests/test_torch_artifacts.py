@@ -24,7 +24,7 @@ from marl_traffic_intersection_tpu_torch.models import make_model
 from marl_traffic_intersection_tpu_torch.utils.checkpoint import (EXPORTS, load_policy, load_sac,
                                                                   read_export)
 
-from ._torch_port import ARTIFACTS, export_leaves, shipped_policies
+from ._torch_port import ARTIFACTS, adam_leaves, export_leaves, shipped_policies
 
 F32_REL = 1e-5
 BF16_REL = 2.0 ** -5
@@ -33,9 +33,17 @@ FAMILIES = {"mlp": "policy_mlp_multi", "conv": "policy_conv_multi",
             "gru": "policy_gru_multi", "sac": "policy_sac_multi"}
 
 
+ADAM = ".adam.npz"
+PPO_STORES = [n for n in shipped_policies() if not n.startswith("policy_sac")]
+
+
 def test_every_shipped_artifact_has_an_export():
-    assert len(shipped_policies()) == 12
-    assert sorted(p.stem for p in EXPORTS.glob("*.npz")) == shipped_policies()
+    """One weights export per store, and one Adam export per PPO-family
+    store (the SAC stores hold no optimizer state)."""
+    assert len(shipped_policies()) == 12 and len(PPO_STORES) == 10
+    files = sorted(p.name for p in EXPORTS.glob("*.npz"))
+    assert [f for f in files if not f.endswith(ADAM)] == [f"{n}.npz" for n in shipped_policies()]
+    assert [f for f in files if f.endswith(ADAM)] == [f"{n}{ADAM}" for n in PPO_STORES]
 
 
 @pytest.mark.parametrize("name", shipped_policies())
@@ -47,6 +55,30 @@ def test_export_is_bit_equal_to_the_orbax_store(name):
             got = z[key]
             assert got.dtype == np.float32 and got.shape == leaf.shape, key
             np.testing.assert_array_equal(got.view(np.int32), leaf.view(np.int32), err_msg=key)
+
+
+@pytest.mark.parametrize("name", PPO_STORES)
+def test_adam_export_is_bit_equal_to_the_orbax_store(name):
+    """Adam's count, mu and nu at opt_state[1][0] and the store's update."""
+    store = jax_restore(str(ARTIFACTS / name))
+    want = adam_leaves(store)
+    with np.load(EXPORTS / f"{name}{ADAM}") as z:
+        assert sorted(z.files) == sorted(want)
+        for key, leaf in want.items():
+            got = z[key]
+            assert got.dtype == leaf.dtype and got.shape == leaf.shape, key
+            np.testing.assert_array_equal(got, leaf, err_msg=key)
+            if got.dtype == np.float32:
+                np.testing.assert_array_equal(got.view(np.int32), leaf.view(np.int32),
+                                              err_msg=key)
+        assert int(z["update"]) == int(store["update"]) > 0
+        assert int(z["count"]) == int(store["opt_state"][1][0]["count"]) > 0
+        # one moment per parameter, laid out as the parameter
+        params = export_leaves(store)
+        for group in ("mu", "nu"):
+            mom = {k.split("/", 1)[1]: v for k, v in want.items() if k.startswith(group + "/")}
+            assert {k: v.shape for k, v in mom.items()} == \
+                   {k.split("/", 1)[1]: v.shape for k, v in params.items()}
 
 
 def _obs(kind, seed=0, n=256):

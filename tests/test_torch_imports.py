@@ -15,6 +15,7 @@ _BLOCKED = """
 import sys
 for name in ("jax", "flax", "optax", "orbax", "marl_traffic_intersection_tpu"):
     sys.modules[name] = None
+import numpy as np
 import torch
 import marl_traffic_intersection_tpu_torch as P
 from marl_traffic_intersection_tpu_torch import convert, evaluate, bench, train  # noqa: F401
@@ -54,6 +55,19 @@ slearner = sac.SACLearner(venv, sac.SACConfig(buffer_capacity=48, warmup=12, bat
 sts = slearner.init()
 sts, state, obs, metrics = slearner.train_step(sts, state, obs)
 assert sts.update_count == 2 and all(bool(torch.isfinite(v)) for v in metrics.values())
+# the single-env API, the renderer, the native engine, play and the warm start
+from marl_traffic_intersection_tpu_torch import compat, play, warm_start_central  # noqa: F401
+from marl_traffic_intersection_tpu_torch.envs import events, gymnasium_compat  # noqa: F401
+from marl_traffic_intersection_tpu_torch.envs.gym import GymIntersectionEnv
+from marl_traffic_intersection_tpu_torch.native import NativeEngine  # noqa: F401
+from marl_traffic_intersection_tpu_torch.render import draw  # noqa: F401
+from marl_traffic_intersection_tpu_torch.utils.checkpoint import load_train_state
+for backend in ("torch", "native"):
+    genv = GymIntersectionEnv({"num_agents": 2, "device": "cpu", "backend": backend})
+    gobs, info = genv.step(np.zeros((2, 2), np.float32))[::4]
+    assert gobs.shape == (2, 127) and info["step"] == 1
+assert len(genv.env.cars) == 2 and compat.Car.from_env_state(venv.reset()[0], 1).alive
+assert load_train_state("policy_mlp_cfg1", "mlp").update == 750
 blocked = ("jax", "flax", "optax", "orbax", "marl_traffic_intersection_tpu")
 assert not any(m.split(".")[0] in blocked for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -66,7 +80,7 @@ def test_port_imports_no_jax_and_steps_on_cpu():
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr[-3000:]
 
 
-def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
+def test_entry_points_need_a_card_unless_told_cpu(monkeypatch, tmp_path):
     import marl_traffic_intersection_tpu_torch as P
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -84,6 +98,21 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
                        (evaluate.main, ["--vector", "2", "--max-steps", "2", "--policy",
                                         "checkpoint", "--checkpoint", "policy_sac_cfg1",
                                         "--model", "sac"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+        main(argv + ["--device", "cpu"])
+    # the single-env API and its entry points
+    from marl_traffic_intersection_tpu_torch import play
+    from marl_traffic_intersection_tpu_torch.envs.gym import GymIntersectionEnv
+    from marl_traffic_intersection_tpu_torch.envs.gymnasium_compat import GymnasiumVectorEnv
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GymIntersectionEnv({"num_agents": 1})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GymnasiumVectorEnv(2)
+    assert GymIntersectionEnv({"device": "cpu"}).device.type == "cpu"
+    for main, argv in ((evaluate.main, ["--episodes", "1", "--max-steps", "3"]),
+                       (play.main, ["--script", "--steps", "1", "--out", str(tmp_path / "p.gif")]),
+                       (train.main, small + ["--resume", "policy_mlp_cfg1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
         main(argv + ["--device", "cpu"])

@@ -40,7 +40,10 @@ def test_resumed_run_continues_the_uninterrupted_one_exactly(tmp_path, capsys, m
         assert line["device"] == "cpu"
         assert all(torch.isfinite(torch.tensor(line[k])) for k in ("pg_loss", "v_loss"))
     a, b = restore_checkpoint(tmp_path / "a"), restore_checkpoint(tmp_path / "b")
-    assert a["update"] == b["update"] == 4 and a["update_count"] == b["update_count"] == 64
+    # the resumed run's minibatch counter restarts at 0, as train.py's does:
+    # 2 updates x 16 minibatches after the resume
+    assert a["update"] == b["update"] == 4 and a["update_count"] == 64
+    assert b["update_count"] == 32
     for k, v in a["model"].items():
         assert torch.equal(v, b["model"][k]), k
     for i, st in a["optimizer"]["state"].items():
