@@ -36,20 +36,31 @@ Phases, one line each; any failure exits nonzero:
               the parameters more than ten times that
   7. traffic  BASELINE config 4 (8 agents, density 1.0, 32 NPC slots, exact
               NPC mode) at 4096 envs for 200 steps with the bf16 MLP in the
-              loop, spawns drawn on the card: finite obs, NPCs spawned, K1
-              launched once per step at M = 40 and every kernel at least once;
-              env-steps/s, launches and device reads per step, the NPC loops'
-              rounds, alive slots per env (batch max and mean), peak memory,
-              a profile (busy share, top kernels); then 100 steps in the fast
-              NPC mode. K1 on that run's obstacle sets bit-equal to the plain
-              version and timed ("4096x8 M=40 traffic"). 64 envs x 8 agents x
-              200 steps with a spawn try every step and resets at step 175:
-              the card run bit-equal to the CPU run, and on the card the
-              exact mode's slot and wave schedules, whose cleanup replays and
-              collision cascade must both have run, bit-equal to the serial
-              transcription. Last, the train
-              entry point with --traffic --density 1.0 at 4096 x 4: 3 updates
-              and one more by auto-resume, finite losses
+              loop, spawns drawn on the card, four times in turns: the pool
+              narrowed to its live slot prefix (npc_tier=-1, the default),
+              the full width (npc_tier=0), then the full width and narrowed
+              for 50 steps; the same resets, spawns and actions each time,
+              and the final states of each pair bit-equal. Each: finite obs,
+              NPCs spawned, K1 launched once per step at M = 8 + w for the
+              widths w that ran (M = 40 at the full width) and every kernel
+              at least once; env-steps/s, the widths run, launches and
+              device reads per step, the NPC loops' rounds, alive slots per
+              env (batch max and mean), peak memory; the first two also a
+              profile (busy share, top kernels) and the device time of the
+              NPC update and of its dense plan at the width most steps ran.
+              Then 100 steps in the fast NPC mode (with a profile) and 50
+              exact steps at density 10 (test.py's traffic) after 150
+              warm-up steps, narrowed, each with the same line. K1 on the
+              last obstacle set of every M of every one of these runs (40
+              full, 16 and 24 narrowed) bit-equal to the plain version, and
+              timed at each M. 64
+              envs x 8 agents x 200 steps at the full NPC width with a spawn
+              try every step and resets at step 175: the card run bit-equal
+              to the CPU run, and on the card the exact mode's slot and wave
+              schedules, whose cleanup replays and collision cascade must
+              both have run, bit-equal to the serial transcription. Last,
+              the train entry point with --traffic --density 1.0 at 4096 x
+              4: 3 updates and one more by auto-resume, finite losses
   8. policies the twelve shipped policies (the committed numpy exports) loaded
               onto the card; each family's forward on 4096 seeded observations
               on the card and on the CPU within the CPU tests' bf16
@@ -63,7 +74,9 @@ Phases, one line each; any failure exits nonzero:
               versions; evaluate --config 4 --vector 4096 --max-steps
               200 with policy_attn_multi, policy_gru_multi, policy_central_cfg4
               and policy_sac_multi: finite rewards, K1 launched once per step
-              at M = 40, completions, crashes and env-steps/s; serve with
+              at M = 8 + w (w the NPC pool's width: 8, 16 or 32), K1 on the
+              last obstacle set of each M bit-equal to its plain version,
+              completions, crashes and env-steps/s; serve with
               policy_mlp_multi and policy_gru_multi on a free local port, 3
               requests each (1 row, 300 rows, and a third of 256 rows or a GRU
               round trip with h), every answer bit-equal to a direct padded
@@ -103,6 +116,15 @@ Phases, one line each; any failure exits nonzero:
               with policy_mlp_cfg1 on the card, every episode a success; 200
               steps of config 2 (traffic), finite, K1 once per step at M=33 and
               bit-equal to its plain version there
+ 12. planning snapshot planning (algos/mcts.py) on config 1's left turn, closed
+              loop for 5 planned steps each: random shooting (mpc_policy, 256
+              candidates, horizon 20) and CEM (cem_policy, 64 candidates, 4
+              iterations, horizon 20); ms per planned step, K1 launched 20
+              (80) times per plan at 256x1 (64x1) M=1, K1 and the libm
+              kernels on the last plan's operands bit-equal to their plain
+              versions; then one plan of each on the card and on the CPU with
+              the same injected draws: random shooting's best action and
+              return bit-equal, CEM's mean and first action within CEM_TOL
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
 
@@ -113,13 +135,20 @@ dispatch whenever a launch is shorter than the wrapper's Python call.
 "launch_floor_ms" (libm rows) is the device time of the smallest launch, a
 torch.add of two 1-element tensors. "launches" counts the main phase's
 launches, "launches_train" those of the train phase's 3 updates,
-"launches_traffic" those of the traffic phase's 200 exact-mode steps,
+"launches_traffic" those of the traffic phase's 200 narrowed exact steps,
 "launches_eval_config4" those of 200 config-4 evaluate steps with the GRU
 policy, "launches_gru_train" those of the 3 GRU updates at 4096 x 4 (and
 their reset's observation), "launches_sac_train" those of train_sac at
 256 x 2: 16 demo steps, then 40 calls of 8 env steps and updates,
-"launches_resume" those of the 2 resumed attention updates at 1024 x 4, and
-"launches_gym" those of the 200 config-1 gym steps on the card.
+"launches_resume" those of the 2 resumed attention updates at 1024 x 4,
+"launches_gym" those of the 200 config-1 gym steps on the card,
+"launches_traffic_full" those of the 200 exact steps at the full NPC width
+("launches_traffic" are the narrowed run's), and "launches_plan_mpc" and
+"launches_plan_cem" those of one random-shooting and one CEM plan. K1's
+"launches_traffic_by_m" and "launches_traffic_density10_by_m" count the
+narrowed run's launches at density 1 and 10 by obstacle count M, and its
+"*_traffic" keys hold its numbers at M = 40, "*_traffic_m<M>" at the
+narrowed M.
 """
 from __future__ import annotations
 
@@ -531,7 +560,8 @@ def main() -> int:
 
     for name, fn in (("train", train_phase), ("traffic", traffic_phase),
                      ("policies", policies_phase), ("learners", learners_phase),
-                     ("resume", resume_phase), ("gym", gym_phase)):
+                     ("resume", resume_phase), ("gym", gym_phase),
+                     ("planning", planning_phase)):
         t0 = time.perf_counter()
         if fn(dev, card, kernels):
             return 1
@@ -731,18 +761,18 @@ def k1_bound(B, N, M, samples):
 @contextlib.contextmanager
 def k1_counted():
     """K1's launches by obstacle count M (``.by_m``) while the block runs, the
-    env's ``lidar_scan`` wrapped; ``.args`` keeps the last launch's arguments
-    and ``.libm`` each libm kernel's last operands on the card, for
-    ``held_to_plain``."""
+    env's ``lidar_scan`` wrapped; ``.args`` keeps the last launch's arguments,
+    ``.args_by_m`` the last launch's at each M, and ``.libm`` each libm
+    kernel's last operands on the card, for ``held_to_plain``."""
     from marl_traffic_intersection_tpu_torch.core import env as env_module
     from marl_traffic_intersection_tpu_torch.ops import libm
 
     scan, apply = env_module.lidar_scan, libm._apply
-    rec = types.SimpleNamespace(by_m=collections.Counter(), args=None, libm={})
+    rec = types.SimpleNamespace(by_m=collections.Counter(), args=None, args_by_m={}, libm={})
 
     def counted(*args, **kw):
         rec.by_m[args[3].shape[1]] += 1
-        rec.args = args
+        rec.args = rec.args_by_m[args[3].shape[1]] = args
         return scan(*args, **kw)
 
     def recorded(name, *xs):
@@ -758,20 +788,21 @@ def k1_counted():
 
 
 def held_to_plain(rec, kernels) -> tuple:
-    """K1 on the last arguments ``k1_counted`` kept, and every libm kernel of
-    ``kernels`` on its last operands, against their plain versions
-    (``lidar_scan_ref``; the same wrapper on the CPU, the host build of
-    libm.cu's functions), bit for bit: (the shapes held, the failures)."""
+    """K1 on the last arguments ``k1_counted`` kept at each obstacle count M,
+    and every libm kernel of ``kernels`` on its last operands, against their
+    plain versions (``lidar_scan_ref``; the same wrapper on the CPU, the host
+    build of libm.cu's functions), bit for bit: (the shapes held, the
+    failures)."""
     from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
     from marl_traffic_intersection_tpu_torch.ops import libm, lidar_cuda
 
     held, bad = [], []
-    if rec.args is None:
+    if not rec.args_by_m:
         bad.append("lidar_scan never launched")
-    else:
-        got, ref = lidar_cuda.lidar_scan(*rec.args), lidar_scan_ref(*rec.args)
-        B, N = rec.args[0].shape
-        held.append(f"lidar_scan {B}x{N} M={rec.args[3].shape[1]}")
+    for M, args in sorted(rec.args_by_m.items()):
+        got, ref = lidar_cuda.lidar_scan(*args), lidar_scan_ref(*args)
+        B, N = args[0].shape
+        held.append(f"lidar_scan {B}x{N} M={M}")
         if not bits_equal(got, ref):
             bad.append(f"lidar_scan differs from lidar_scan_ref on "
                        f"{int((got.cpu().view(torch.int32) != ref.cpu().view(torch.int32)).sum())}"
@@ -792,18 +823,19 @@ def held_to_plain(rec, kernels) -> tuple:
 
 
 def traffic_runs(dev, modes, B=64):
-    """The histories of ``B`` envs of config 4 on ``dev`` over TRY_STEPS
-    steps for each (npc_mode, npc_cleanup) in ``modes``, with the same
-    resets, actions and injected spawns; the first run's NPC-steps (alive
-    NPCs summed over steps); and each run's ``npc_stats`` (the exact mode's
-    loop rounds and device reads) with its seconds."""
+    """The histories of ``B`` envs of config 4 on ``dev``, at the full NPC
+    width, over TRY_STEPS steps for each (npc_mode, npc_cleanup) in
+    ``modes``, with the same resets, actions and injected spawns; the first
+    run's NPC-steps (alive NPCs summed over steps); and each run's
+    ``npc_stats`` (the exact mode's loop rounds and device reads) with its
+    seconds."""
     from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
     from marl_traffic_intersection_tpu_torch.core.routes import default_ego_routes
 
     runs, alive, stats = {}, 0, {}
     for mode, cleanup in modes:
         t0 = time.perf_counter()
-        env = IntersectionEnv(EnvConfig(npc_mode=mode, npc_cleanup=cleanup,
+        env = IntersectionEnv(EnvConfig(npc_mode=mode, npc_cleanup=cleanup, npc_tier=0,
                                         max_steps=TRY_MAX_STEPS, **TRAFFIC_CFG), device=dev)
         pool = env.table.route_ids(default_ego_routes(12, 3))
         T = env.traffic_ids.shape[0]
@@ -837,9 +869,10 @@ def traffic_runs(dev, modes, B=64):
     return runs, alive, stats
 
 
-def npc_breakdown(env, state) -> dict:
+def npc_breakdown(env, state, width) -> dict:
     """Device and wall ms per call of the exact NPC update and of its dense
-    ghost-scan plan alone, on ``state``'s NPC pool (torch.profiler, 5 calls)."""
+    ghost-scan plan alone, on the first ``width`` slots of ``state``'s NPC pool
+    (torch.profiler, 5 calls, each window ending in a synchronize)."""
     from marl_traffic_intersection_tpu_torch.core import npc as npc_module
     from marl_traffic_intersection_tpu_torch.core.constants import DT_DEFAULT, PATH_LEN
     from marl_traffic_intersection_tpu_torch.core.physics import update_path_index
@@ -847,6 +880,7 @@ def npc_breakdown(env, state) -> dict:
     from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
 
     pool, ego, dev = state.npc, state.ego, env.device
+    pool = type(pool)(*(a[:, :width] if a.dim() >= 2 else a for a in pool))
     B, M = pool.alive.shape
     paths = env.paths[pool.route_id.long()]
     pi0 = update_path_index(paths, PATH_LEN, pool.path_index, pool.x, pool.y)
@@ -858,7 +892,7 @@ def npc_breakdown(env, state) -> dict:
         "npc_traffic_update exact slot": lambda: npc_module.npc_traffic_update(
             pool, env.paths, env.goal_xy, env.spawn_xy, env.spawn_heading, env.traffic_ids,
             ego.x, ego.y, torch.ones_like(ego.alive), *no_spawn, libm.const(DT_DEFAULT, dev)),
-        "dense plan (B, 32, 32, 160)": lambda: npc_module._plan(*poses, others, pi0, paths,
+        f"dense plan ({B}, {M}, {M}, {PATH_LEN})": lambda: npc_module._plan(*poses, others, pi0, paths,
                                                                 poses),
     }
     out = {}
@@ -870,13 +904,88 @@ def npc_breakdown(env, state) -> dict:
     return out
 
 
+def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, **cfg) -> dict:
+    """``steps`` steps of config 4 at TRAFFIC_B x TRAFFIC_N with ``model`` in
+    the loop, spawns drawn on the card (VectorEnv seed 2, so every run of the
+    same ``cfg`` sees the same resets, spawns and actions), after ``warmup``
+    steps: its phase line, and a dict of what it read (None on failure)."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
+
+    B, N = TRAFFIC_B, TRAFFIC_N
+    env = IntersectionEnv(EnvConfig(**{**TRAFFIC_CFG, **cfg}), device=dev)
+    venv = VectorEnv(env, num_envs=B, seed=2)
+    slots = env.config.max_npcs
+    state, obs = venv.reset()
+    for _ in range(warmup):
+        state, out = venv.step(state, model.act(obs))
+        obs = out.obs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    env.npc_stats.clear()
+    alive = torch.zeros((steps, B), dtype=torch.int32, device=dev)
+    spawned = torch.zeros((), dtype=torch.int64, device=dev)
+    with k1_counted() as k1:
+        t0 = time.perf_counter()
+        for t in range(steps):
+            state, out = venv.step(state, model.act(obs))
+            obs = out.obs
+            alive[t] = state.npc.alive.sum(1)
+            spawned += out.spawned.sum()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    stats = dict(env.npc_stats)
+    peak = torch.cuda.max_memory_allocated()
+    final = [t.clone() for t in (*state.ego, *state.npc, state.lidar, state.step_count, obs)]
+    finite = bool(torch.isfinite(obs).all())
+    allowed = {N + w for w in venv.npc_widths + [slots]}
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    if (obs.shape != (B, N, 127) or not finite or int(spawned) == 0
+            or sum(k1.by_m.values()) != steps or launches.get("lidar_scan", 0) != steps
+            or not set(k1.by_m) <= allowed or missing):
+        phase("traffic", f"FAIL {label}: obs {tuple(obs.shape)} finite={finite}, "
+                         f"{int(spawned)} NPCs spawned; K1 launches by obstacle count "
+                         f"{dict(k1.by_m)} (want {steps} at M in {sorted(allowed)}); kernels "
+                         f"not launched {missing}")
+        return None
+    widths = {k: v for k, v in stats.items() if "_width_" in k}
+    prof, top, breakdown = None, None, None
+    if profile:
+        carry = [state, obs]
+
+        def step():
+            carry[0], o = venv.step(carry[0], model.act(carry[1]))
+            carry[1] = o.obs
+        prof = profile_steps(step, 5)
+        top = [(k["name"][:60], round(k["ms_per_step"], 3), k["launches_per_step"])
+               for k in prof.pop("top_kernels")[:8]]
+        # the exact NPC update and its plan at the width most steps ran
+        ran = {int(k.rsplit("_", 1)[1]): v for k, v in widths.items()}
+        if env.config.npc_mode == "exact":
+            breakdown = npc_breakdown(env, carry[0], max(ran, key=ran.get, default=slots))
+    per_env = alive.float()
+    reads = stats.get("host_reads", 0) / steps
+    phase("traffic", f"config 4 {label}, {B}x{N}, {steps} steps, bf16 MLP in the loop: "
+                     f"{B * steps / secs:.1f} env-steps/s; {int(spawned)} NPCs spawned; "
+                     f"alive slots per env: batch max {int(alive.max())}, mean "
+                     f"{float(per_env.mean()):.3f}, batch max by step mean "
+                     f"{float(per_env.amax(1).mean()):.2f}; widths run {widths}; K1 launches by "
+                     f"M {dict(k1.by_m)}; kernel launches {launches} "
+                     f"({sum(launches.values()) / steps:.1f} per step); device reads and NPC "
+                     f"loop rounds {stats} ({reads:.2f} reads per step); peak memory "
+                     f"{peak / 2**20:.1f} MiB; profile of 5 steps {json.dumps(prof)}; top "
+                     f"kernels (name, ms, launches per step) {top}; where the NPC update's "
+                     f"device time goes {json.dumps(breakdown)}; card {card}")
+    return dict(rate=B * steps / secs, launches=launches, k1_args=k1.args_by_m, final=final,
+                by_m=dict(k1.by_m), widths=widths, reads=reads, peak=peak)
+
+
 def traffic_phase(dev, card, kernels) -> int:
     """Phase 7 (see the module docstring); 1 on failure."""
-    from marl_traffic_intersection_tpu_torch import (ActorCriticMLP, EnvConfig,
-                                                     IntersectionEnv, VectorEnv)
-    from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
-    from marl_traffic_intersection_tpu_torch.ops import lidar_cuda, native
-    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
+    from marl_traffic_intersection_tpu_torch import ActorCriticMLP
 
     B, N, STEPS = TRAFFIC_B, TRAFFIC_N, TRAFFIC_STEPS
     torch.manual_seed(0)
@@ -886,88 +995,88 @@ def traffic_phase(dev, card, kernels) -> int:
         # policy alone idles at the spawn points, and an ego there blocks
         # every NPC spawn near it
         model.pi_mean.bias[0] += 1.0
-    for mode, steps in (("exact", STEPS), ("fast", 100)):
-        env = IntersectionEnv(EnvConfig(npc_mode=mode, **TRAFFIC_CFG), device=dev)
-        venv = VectorEnv(env, num_envs=B, seed=2)
-        state, obs = venv.reset()
-        for _ in range(5):                                  # warm-up
-            state, out = venv.step(state, model.act(obs))
-            obs = out.obs
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        native.reset_launches()
-        env.npc_stats.clear()
-        alive = torch.zeros((steps, B), dtype=torch.int32, device=dev)
-        spawned = torch.zeros((), dtype=torch.int64, device=dev)
-        with k1_counted() as k1:
-            t0 = time.perf_counter()
-            for t in range(steps):
-                state, out = venv.step(state, model.act(obs))
-                obs = out.obs
-                alive[t] = state.npc.alive.sum(1)
-                spawned += out.spawned.sum()
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-        launches = dict(native.LAUNCHES)
-        stats = dict(env.npc_stats)
-        peak = torch.cuda.max_memory_allocated()
-        finite = bool(torch.isfinite(obs).all())
-        if obs.shape != (B, N, 127) or not finite or int(spawned) == 0:
-            phase("traffic", f"FAIL {mode}: obs {tuple(obs.shape)} finite={finite}, "
-                             f"{int(spawned)} NPCs spawned")
+    # the exact mode narrowed to the live slot prefix (npc_tier=-1, the
+    # default) and at the full width (npc_tier=0), in turns, on the same
+    # resets, spawns and actions; the second pair runs a quarter as many steps
+    runs, PAIR2 = [], STEPS // 4
+    for turn, tier in enumerate((-1, 0, 0, -1)):
+        label = f"exact {'narrowed (npc_tier=-1)' if tier else 'full width (npc_tier=0)'}"
+        r = traffic_run(dev, card, kernels, model, f"{label}, turn {turn + 1}",
+                        STEPS if turn < 2 else PAIR2, profile=turn < 2, npc_tier=tier)
+        if r is None:
             return 1
-        if dict(k1.by_m) != {N + 32: steps} or launches.get("lidar_scan", 0) != steps:
-            phase("traffic", f"FAIL {mode}: K1 launches by obstacle count {dict(k1.by_m)} "
-                             f"(want {{{N + 32}: {steps}}})")
-            return 1
-        missing = [k for k in kernels if launches.get(k, 0) == 0]
-        if missing:
-            phase("traffic", f"FAIL {mode}: kernels not launched: {missing}")
-            return 1
-        prof = profile_steps(lambda: venv.step(state, model.act(obs)), 5)
-        top = [(k["name"][:60], round(k["ms_per_step"], 3), k["launches_per_step"])
-               for k in prof.pop("top_kernels")[:8]]
-        per_env = alive.float()
-        phase("traffic", f"config 4 {mode}, {B}x{N}, {steps} steps, bf16 MLP in the loop: "
-                         f"{B * steps / secs:.1f} env-steps/s; {int(spawned)} NPCs spawned; "
-                         f"alive slots per env: batch max {int(alive.max())}, mean "
-                         f"{float(per_env.mean()):.3f}, batch max by step mean "
-                         f"{float(per_env.amax(1).mean()):.2f}; kernel launches {launches} "
-                         f"({sum(launches.values()) / steps:.1f} per step); device reads and "
-                         f"NPC loop rounds {stats} ({stats.get('host_reads', 0) / steps:.2f} "
-                         f"reads per step); peak memory {peak / 2**20:.1f} MiB; profile of 5 "
-                         f"steps {json.dumps(prof)}; top kernels (name, ms, launches per step) "
-                         f"{top}; card {card}")
-        if mode == "exact":
-            for k in kernels:
-                kernels[k]["launches_traffic"] = launches[k]
-            args = list(k1.args)
-            phase("traffic", f"where the exact step's device time goes, on its last pool: "
-                             f"{json.dumps(npc_breakdown(env, state))}; card {card}")
-
-    # K1 on the exact run's last obstacle set, against its plain version, timed
-    got = lidar_cuda.lidar_scan(*args)
-    ref, samples = lidar_scan_ref(*args, return_samples=True)
-    if not bits_equal(got, ref):
-        diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-        phase("traffic", f"FAIL: K1 differs from lidar_scan_ref on {diff} traffic rays")
+        runs.append(r)
+        torch.cuda.empty_cache()
+    narrow, full = runs[0], runs[1]
+    differ = [(j, i) for j in (0, 2)
+              for i, (a, b) in enumerate(zip(runs[j]["final"], runs[j + 1]["final"]))
+              if not bits_equal(a, b)]
+    small = [m for m in narrow["by_m"] if m < N + 32]
+    if differ or full["by_m"] != {N + 32: STEPS} or not small:
+        phase("traffic", f"FAIL: narrowed vs full width: final states differ in (first "
+                         f"turn of the pair, tensor) {differ[:5]}; K1 by M narrowed "
+                         f"{narrow['by_m']}, full "
+                         f"{full['by_m']}")
         return 1
-    M = args[3].shape[1]
-    bound, by = k1_bound(B, N, M, samples)
-    warps = samples.reshape(-1, 32).double()
-    k = kernels["lidar_scan"]
-    k.update(ms_traffic=device_ms(lambda: lidar_cuda.lidar_scan(*args), 50, "lidar_kernel"),
-             plain_ms_traffic=cuda_ms(lambda: lidar_scan_ref(*args), 3),
-             bound_ms_traffic=bound, bound_by_traffic=by,
-             max_abs_err_traffic=float((got - ref).abs().max()),
-             lane_efficiency_traffic=float(warps.sum() / (32 * warps.max(1).values).sum()),
-             blocks_per_sm_traffic=lidar_cuda.blocks_per_sm(M))
-    phase("traffic", f"K1 {B}x{N} M={M} traffic: bit-equal to the plain version "
-                     f"({got.numel()} rays, {int(samples.sum())} samples marched, "
-                     f"{int(args[6].sum())} obstacles present); device {k['ms_traffic']:.5f} ms, "
-                     f"plain {k['plain_ms_traffic']:.3f} ms, bound {bound:.5f} ms ({by}), lane "
-                     f"efficiency {k['lane_efficiency_traffic']:.4f}, "
-                     f"{k['blocks_per_sm_traffic']} blocks per SM; card {card}")
+    rates = [round(r["rate"], 1) for r in runs]
+    phase("traffic", f"narrowed vs full width, exact, in turns (narrowed, full: {STEPS} "
+                     f"steps; full, narrowed: {PAIR2}): final states bit-equal within "
+                     f"each pair ({len(narrow['final'])} tensors each); "
+                     f"env-steps/s {rates}; peak MiB {[round(r['peak'] / 2**20, 1) for r in runs]}"
+                     f"; device reads per step {[round(r['reads'], 3) for r in runs]}; card {card}")
+    for k in kernels:
+        kernels[k]["launches_traffic"] = narrow["launches"][k]
+        kernels[k]["launches_traffic_full"] = full["launches"][k]
+    kernels["lidar_scan"]["launches_traffic_by_m"] = narrow["by_m"]
+
+    # the fast NPC mode, and the density of test.py's traffic (10) after 150
+    # steps, when the egos have cleared the spawn points and the pool has
+    # grown to its steady size (on the CPU at 32 envs: mean 4-5 alive, 6-7
+    # at most)
+    for label, steps, cfg in (("fast narrowed", 100, dict(npc_mode="fast")),
+                              ("exact narrowed, density 10", 50,
+                               dict(traffic_density=10.0, warmup=150))):
+        r = traffic_run(dev, card, kernels, model, label, steps, profile=True, **cfg)
+        if r is None:
+            return 1
+        runs.append(r)
+        torch.cuda.empty_cache()
+    dense = runs[-1]
+    kernels["lidar_scan"]["launches_traffic_density10_by_m"] = dense["by_m"]
+
+    # K1 on the last obstacle set of each M in each run above, against its
+    # plain version; timed on the first run's set of each M (M = 16 and 40 on
+    # the same poses, those of the first pair's final states)
+    from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
+    from marl_traffic_intersection_tpu_torch.ops import lidar_cuda
+    timed = set()
+    for r in runs:
+        for M, args in sorted(r["k1_args"].items()):
+            got = lidar_cuda.lidar_scan(*args)
+            ref, samples = lidar_scan_ref(*args, return_samples=True)
+            if not bits_equal(got, ref):
+                diff = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+                phase("traffic", f"FAIL: K1 differs from lidar_scan_ref on {diff} rays at M={M}")
+                return 1
+            if M in timed:
+                continue
+            timed.add(M)
+            tag = "traffic" if M == N + 32 else f"traffic_m{M}"
+            warps = samples.reshape(-1, 32).double()
+            k = kernels["lidar_scan"]
+            k.update({f"max_abs_err_{tag}": float((got - ref).abs().max()),
+                      f"lane_efficiency_{tag}": float(warps.sum()
+                                                      / (32 * warps.max(1).values).sum()),
+                      f"blocks_per_sm_{tag}": lidar_cuda.blocks_per_sm(M)})
+            phase("traffic", f"K1 {B}x{N} M={M} ({tag}): bit-equal to the plain version "
+                             f"({got.numel()} rays, {int(samples.sum())} samples marched, "
+                             f"{int(args[6].sum())} obstacles present); "
+                             f"{k1_times(args, kernels, tag)}; lane efficiency "
+                             f"{k[f'lane_efficiency_{tag}']:.4f}, {k[f'blocks_per_sm_{tag}']} "
+                             f"blocks per SM; card {card}")
+    phase("traffic", f"K1 bit-equal to its plain version on the last obstacle set of each "
+                     f"M of each of the {len(runs)} runs: M by run "
+                     f"{[sorted(r['k1_args']) for r in runs]}")
 
     # 64 x 8 x 200 with injected spawns: card = CPU, and slot = wave = serial
     modes = (("exact", "slot"), ("exact", "wave"), ("serial", "slot"))
@@ -1153,7 +1262,8 @@ def policies_phase(dev, card, kernels) -> int:
             phase("policies", f"FAIL: {name} on config 1: {got}; {bad}")
             return 1
 
-    # ---- config 4 (8 agents, traffic): K1 at M = 40 once per step
+    # ---- config 4 (8 agents, traffic): K1 once per step, at M = 8 + w for
+    # the widths w of the NPC pool that ran (8, 16 narrowed, 32 full)
     for name in ("policy_attn_multi", "policy_gru_multi", "policy_central_cfg4",
                  "policy_sac_multi"):
         native.reset_launches()
@@ -1163,16 +1273,19 @@ def policies_phase(dev, card, kernels) -> int:
                             "--policy", "checkpoint", "--checkpoint", f"artifacts/{name}",
                             "--model", SHIPPED[name]])
         launches = dict(native.LAUNCHES)
+        held, bad = held_to_plain(k1, {"lidar_scan": kernels["lidar_scan"]})
         phase("policies", f"config 4, {name}, 4096 x 8, 200 exact steps: completions "
                           f"{got['successes']}, crashes {got['crashes_vehicle']} vehicle + "
                           f"{got['crashes_object']} object in {got['episodes']} episodes, "
                           f"mean episode reward {got['mean_ep_reward']}, "
                           f"{got['env_steps_per_s']} env-steps/s, K1 launches by M "
-                          f"{dict(k1.by_m)}, peak memory "
+                          f"{dict(k1.by_m)}, K1 on each M's last obstacle set bit-equal to "
+                          f"its plain version: {held}, peak memory "
                           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
-        if not np.isfinite(got["mean_ep_reward"]) or dict(k1.by_m) != {40: 200} \
-                or launches.get("lidar_scan", 0) != 200:
-            phase("policies", f"FAIL: {name} on config 4: {got}, launches {launches}")
+        if not np.isfinite(got["mean_ep_reward"]) or sum(k1.by_m.values()) != 200 \
+                or not set(k1.by_m) <= {16, 24, 40} or launches.get("lidar_scan", 0) != 200 \
+                or bad:
+            phase("policies", f"FAIL: {name} on config 4: {got}, launches {launches}; {bad}")
             return 1
         if name == "policy_gru_multi":
             missing = [k for k in kernels if launches.get(k, 0) == 0]
@@ -1646,6 +1759,88 @@ def gym_phase(dev, card, kernels) -> int:
                  f"once per step at 1x1 M=33, bit-equal to its plain version ({held}); "
                  f"{k1_times(rec.args, kernels, 'gym_traffic')}; median wall ms per step "
                  f"{float(np.median(wall)):.4f}; card {card}")
+    return 0
+
+
+PLAN_ROUTE = ("IN_6", "OUT_2")          # config 1's left turn
+MPC_K, MPC_H, CEM_K, CEM_ITERS, PLANS = 256, 20, 64, 4, 5
+# tests/test_torch_planning.py: CEM's elites averaged in another order
+CEM_TOL = 1e-5
+
+
+def planning_phase(dev, card, kernels) -> int:
+    """Phase 12 (see the module docstring); 1 on failure."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv
+    from marl_traffic_intersection_tpu_torch.algos import (cem_plan, cem_policy, mpc_policy,
+                                                           random_shooting_plan)
+    from marl_traffic_intersection_tpu_torch.ops import native
+
+    envs = {d: IntersectionEnv(EnvConfig(num_agents=1, max_steps=4000), device=d)
+            for d in ("cpu", dev)}
+    rid = envs["cpu"].table.route_ids([PLAN_ROUTE])
+    snaps = {d: e.reset_state(rid) for d, e in envs.items()}
+    env, snap = envs[dev], snaps[dev]
+
+    # closed loop on the card: each planned step timed, K1 counted per plan
+    mpc = mpc_policy(env, MPC_K, MPC_H, seed=0)
+    cem = cem_policy(env, seed=0, num_candidates=CEM_K, num_iters=CEM_ITERS, horizon=MPC_H)
+    for name, plan, per_plan in (("mpc", lambda st, w: (mpc(st)[0], w), MPC_H),
+                                 ("cem", lambda st, w: cem(st, w)[::2], CEM_ITERS * MPC_H)):
+        st, warm = snap, torch.zeros((MPC_H, 1, 2), device=dev)
+        plan(st, warm)                                     # warm-up
+        torch.cuda.synchronize()
+        ms, counts = [], []
+        for _ in range(PLANS):
+            native.reset_launches()
+            with k1_counted() as rec:
+                t0 = time.perf_counter()
+                act, warm = plan(st, warm)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            counts.append(dict(native.LAUNCHES))
+            st, _ = env.step(st, act.reshape(1, 1, 2))
+        # observations are not built while planning, so atan2f does not run
+        held, bad = held_to_plain(rec, {k: v for k, v in kernels.items() if counts[-1].get(k)})
+        K = MPC_K if name == "mpc" else CEM_K
+        k1 = [c.get("lidar_scan", 0) for c in counts]
+        if bad or dict(rec.by_m) != {1: per_plan} or k1 != [per_plan] * PLANS \
+                or not bool(torch.isfinite(act).all()):
+            phase("planning", f"FAIL {name}: K1 launches per plan {k1}, by M {dict(rec.by_m)} "
+                              f"(want {per_plan} at M=1); {bad}; action {act}")
+            return 1
+        for k in kernels:
+            kernels[k][f"launches_plan_{name}"] = counts[-1].get(k, 0)
+        phase("planning", f"{name} on config 1 ({K} candidates, horizon {MPC_H}"
+                          f"{f', {CEM_ITERS} iterations' if name == 'cem' else ''}): ms per "
+                          f"planned step {[round(x, 3) for x in ms]}; launches per plan "
+                          f"{counts[-1]}; the kernels on the last plan's operands bit-equal to "
+                          f"their plain versions: {held}; {k1_times(rec.args, kernels, f'plan_{name}')}"
+                          f"; card {card}")
+
+    # card against CPU on injected draws
+    rng = np.random.RandomState(5)
+    noise = torch.from_numpy(rng.uniform(-1, 1, (MPC_H, MPC_K, 1, 2)).astype(np.float32))
+    a0 = torch.from_numpy(rng.uniform(-1, 1, (MPC_K, 1, 2)).astype(np.float32))
+    normals = torch.from_numpy(rng.normal(size=(CEM_ITERS, MPC_H, CEM_K, 1, 2)).astype(np.float32))
+    shot, cems = {}, {}
+    for d in ("cpu", dev):
+        shot[d] = [t.cpu() for t in random_shooting_plan(
+            envs[d], snaps[d], num_candidates=MPC_K, horizon=MPC_H, noise=noise, a0=a0)]
+        cems[d] = [t.cpu() for t in cem_plan(envs[d], snaps[d], num_candidates=CEM_K,
+                                              num_iters=CEM_ITERS, horizon=MPC_H,
+                                              normals=normals)]
+    shot_equal = all(bits_equal(a, b) for a, b in zip(shot["cpu"], shot[dev]))
+    scale = float(cems["cpu"][2].abs().max())
+    cem_diff = max(float((cems["cpu"][i] - cems[dev][i]).abs().max()) for i in (0, 2))
+    if not shot_equal or cem_diff > CEM_TOL * scale:
+        phase("planning", f"FAIL: card vs CPU on injected draws: random shooting "
+                          f"{shot[dev]} vs {shot['cpu']}; CEM mean and action within "
+                          f"{cem_diff:.3g} (tolerance {CEM_TOL} x {scale:.3g})")
+        return 1
+    phase("planning", f"card vs CPU on injected draws: random shooting's best action "
+                      f"{shot['cpu'][0].tolist()} and return {float(shot['cpu'][1])} bit-equal; "
+                      f"CEM's mean and first action within {cem_diff:.3g} (tolerance {CEM_TOL} "
+                      f"of {scale:.3g}); card {card}")
     return 0
 
 

@@ -71,8 +71,10 @@ class EnvConfig:
     """Static configuration, the same fields and defaults as the JAX package's
     ``EnvConfig``. ``npc_mode`` is exact | serial | fast and ``npc_cleanup``
     slot | wave (core/npc.py); every ``lidar_impl`` of the JAX package runs
-    kernel K1, since its lidar variants are bit-identical; ``npc_tier`` is
-    accepted and the NPC pool always runs at its full width.
+    kernel K1, since its lidar variants are bit-identical; ``npc_tier`` picks
+    the widths to which ``VectorEnv`` narrows the NPC pool (envs/vector.py:
+    0 none, > 0 that one, < 0 max_npcs // 4 then // 2); the env itself
+    steps the pool at the width it is given.
 
     ``exact_trig`` and ``exact_obs`` are accepted for API parity and change
     nothing: the port always runs the reference float chain that the JAX

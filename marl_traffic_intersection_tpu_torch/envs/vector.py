@@ -12,8 +12,27 @@ from the pool without replacement), or any callable
 tests replay the JAX package's draws (torch cannot reproduce jax.random
 streams). NPC spawns likewise: ``core.npc.spawn_decision`` on the same
 generator by default, or ``spawn_sampler(num_envs) -> (do_try,
-route_choice)``, each (num_envs,). The NPC pool runs at its full width (the
-JAX package's slot-prefix tiering is not ported).
+route_choice)``, each (num_envs,).
+
+With traffic, the NPC pool is narrowed to its live slot prefix, as the JAX
+package's ``VectorEnv`` does under ``EnvConfig.npc_tier``. A spawn writes the
+first free slot, so the alive slots gather at the front of the pool. When no
+env has an alive slot at index w or beyond, and no env has all of its first
+w slots alive (a spawn could then write slot w), stepping the pool's
+``[:, :w]`` slice and putting the untouched tail back is bit-equal to
+stepping the whole pool: dead slots enter the step only through reductions
+masked by ``alive``, and the step writes no dead slot. The widths tried are
+``npc_tier_widths``'s ladder, the smallest first; the dense ghost-scan plan
+shrinks with the square of the width and kernel K1 marches N + w obstacles.
+
+Where the JAX package decides the width on the device under ``lax.cond``,
+here the host decides it from one small read at the start of each step: the
+batch's highest alive slot and its longest full slot prefix. The stepped
+pool has no alive slot at w or beyond (the step wrote none there) and a
+fresh pool is empty, so the observation of the merged state and
+``final_obs`` use the step's width with no further read. ``env.npc_stats``
+counts these reads in ``host_reads`` and ``tier_reads``, and how often each
+width ran in ``step_width_<w>`` (w = max_npcs for the full pool).
 """
 from __future__ import annotations
 
@@ -24,8 +43,37 @@ import torch
 
 from ..core.constants import DT_DEFAULT
 from ..core.env import EnvState, IntersectionEnv
-from ..core.npc import spawn_decision
+from ..core.npc import NpcState, spawn_decision
 from ..core.routes import default_ego_routes
+
+
+def npc_tier_widths(npc_tier: int, max_npcs: int) -> list:
+    """The narrowed widths to try, smallest first (the JAX package's
+    ``_tiers``): ``npc_tier`` 0 tries none, > 0 that one width, < 0 (the
+    default) max_npcs // 4 then max_npcs // 2; widths outside (0, max_npcs)
+    are dropped."""
+    if npc_tier == 0:
+        widths = []
+    elif npc_tier > 0:
+        widths = [npc_tier]
+    else:
+        widths = [max_npcs // 4, max_npcs // 2]
+    return sorted({w for w in widths if 0 < w < max_npcs})
+
+
+def _narrow(state: EnvState, w: Optional[int]) -> EnvState:
+    """``state`` with its NPC pool cut to slots ``[:, :w]`` (views); None keeps it."""
+    if w is None:
+        return state
+    return state._replace(npc=NpcState(*(a[:, :w] if a.dim() >= 2 else a for a in state.npc)))
+
+
+def _widen(narrow: NpcState, full: NpcState, w: Optional[int]) -> NpcState:
+    """The stepped ``narrow`` pool with ``full``'s tail slots ``[:, w:]`` put back."""
+    if w is None:
+        return narrow
+    return NpcState(*(torch.cat([a, b[:, w:]], 1) if b.dim() >= 2 else a
+                      for a, b in zip(narrow, full)))
 
 
 class VectorEnv:
@@ -49,6 +97,8 @@ class VectorEnv:
         self.generator = torch.Generator(device=env.device).manual_seed(seed)
         self.route_sampler = route_sampler or self.sample_routes
         self.spawn_sampler = spawn_sampler
+        cfg = env.config
+        self.npc_widths = npc_tier_widths(cfg.npc_tier, cfg.max_npcs) if cfg.traffic_flow else []
 
     def sample_routes(self, num_envs: int) -> torch.Tensor:
         """(num_envs, N) route ids from the pool: without replacement when the
@@ -69,6 +119,21 @@ class VectorEnv:
         state = self.env.reset_state(self.route_sampler(self.num_envs))
         return state, self.env.observe(state)
 
+    def _step_width(self, npc: NpcState) -> Optional[int]:
+        """The smallest width of the ladder at which ``npc`` may be stepped
+        (None: the full pool), from one device read: no env may have an alive
+        slot at w or beyond, nor all of its first w slots alive, since a
+        spawn could then write slot w."""
+        a = npc.alive.long()
+        slot = torch.arange(1, a.shape[1] + 1, device=a.device)
+        hi, full = torch.stack([(a * slot).amax(), a.cumprod(1).sum(1).amax()]).tolist()
+        stats = self.env.npc_stats
+        stats["host_reads"] += 1
+        stats["tier_reads"] += 1
+        w = next((w for w in self.npc_widths if hi <= w and full < w), None)
+        stats[f"step_width_{w or self.env.config.max_npcs}"] += 1
+        return w
+
     def step(self, state: EnvState, actions: torch.Tensor, dt: float = DT_DEFAULT,
              final_obs: bool = False):
         """Batched step; actions (B, N, 2). Envs whose episode ended start a
@@ -82,9 +147,14 @@ class VectorEnv:
             spawn = self.spawn_sampler(self.num_envs) if self.spawn_sampler else \
                 spawn_decision(self.generator, self.num_envs, self.env.traffic_ids.shape[0],
                                cfg.traffic_density, dt)
+        w = self._step_width(state.npc) if self.npc_widths else None
+        # without auto-reset the observation is built inside the step, on the
+        # narrowed pool
+        small, out = self.env.step(_narrow(state, w), actions, dt,
+                                   with_obs=not self.auto_reset, spawn=spawn)
+        new_state = small._replace(npc=_widen(small.npc, state.npc, w))
         if not self.auto_reset:
-            return self.env.step(state, actions, dt, spawn=spawn)
-        new_state, out = self.env.step(state, actions, dt, with_obs=False, spawn=spawn)
+            return new_state, out
         ep_done = out.terminated | out.truncated                     # (B,)
         fresh = self.env.reset_state(self.route_sampler(self.num_envs))
 
@@ -98,8 +168,9 @@ class VectorEnv:
             ego=type(new_state.ego)(*(pick(a, b) for a, b in zip(fresh.ego, new_state.ego))),
             lidar=pick(fresh.lidar, new_state.lidar),
             step_count=pick(fresh.step_count, new_state.step_count), npc=npc)
-        out = out._replace(obs=self.env.observe(merged))
+        # the merged pool's alive slots all lie below w: the step wrote none
+        # beyond it and a fresh pool is empty
+        out = out._replace(obs=self.env.observe(_narrow(merged, w)))
         if final_obs:
-            return merged, out, self.env.observe(new_state)
+            return merged, out, self.env.observe(_narrow(new_state, w))
         return merged, out
-

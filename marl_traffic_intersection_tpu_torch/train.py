@@ -47,10 +47,14 @@ Every resume starts the minibatch counter that ``--critic-warmup`` reads from
   python -m marl_traffic_intersection_tpu_torch.train --model central \
       --resume runs/central_warm --critic-warmup 100
 
+``--tb DIR`` writes train.py's TensorBoard scalars to DIR: every metric of
+the update at each log point, at step ``update``. The writer
+(``torch.utils.tensorboard``, which needs the ``tensorboard`` package) is
+imported only when ``--tb`` is given.
+
 ``--lidar-impl`` is accepted for train.py's sake: every choice runs kernel
 K1 (the JAX package's lidar variants are bit-identical). Not here yet:
-train.py's ``--tp`` and ``--distributed`` (multi-GPU, ROADMAP queue 1 item
-14) and ``--tb`` (TensorBoard logging, item 15).
+train.py's ``--tp`` and ``--distributed`` (multi-GPU).
 """
 from __future__ import annotations
 
@@ -149,6 +153,7 @@ def main(argv=None):
     ap.add_argument("--resume", default=None,
                     help="warm start: restore the model, optimizer and update counter from "
                          "a checkpoint of this train or a shipped policy (policy_mlp_cfg1)")
+    ap.add_argument("--tb", default=None, help="TensorBoard log dir")
     ap.add_argument("--log-every", type=int, default=10,
                     help="read the metrics from the device every K updates; between "
                          "log points the loop does not wait for the device")
@@ -205,6 +210,11 @@ def main(argv=None):
             snapshot["h"] = carry[2]
         save_checkpoint(args.checkpoint, snapshot)
         print(f"saved {args.checkpoint} @ update {u}")
+
+    tb = None
+    if args.tb:
+        from torch.utils.tensorboard import SummaryWriter
+        tb = SummaryWriter(args.tb)
 
     # Budget: an auto-resume counts the restored updates toward the absolute
     # budget; an explicit --resume is a warm start and runs the full budget
@@ -306,6 +316,9 @@ def main(argv=None):
                     **{k: round(v, 4) for k, v in split.items()},
                     "device": dev_name}), flush=True)
                 t_log, last_log_u = now, u
+                if tb is not None:
+                    for k, v in m.items():
+                        tb.add_scalar(k, v, u)
             else:
                 meter.tick()
             if args.checkpoint_every and (u + 1) % args.checkpoint_every == 0:
@@ -313,6 +326,8 @@ def main(argv=None):
         start_update = stage_hi
         stage_lo = stage_hi
 
+    if tb is not None:
+        tb.close()
     if ts is None:
         print("nothing to do: checkpoint already covers all updates")
         return

@@ -68,6 +68,13 @@ for backend in ("torch", "native"):
     assert gobs.shape == (2, 127) and info["step"] == 1
 assert len(genv.env.cars) == 2 and compat.Car.from_env_state(venv.reset()[0], 1).alive
 assert load_train_state("policy_mlp_cfg1", "mlp").update == 750
+# snapshot planning
+from marl_traffic_intersection_tpu_torch.algos import cem_policy, mpc_policy
+env1 = P.IntersectionEnv(P.EnvConfig(), device="cpu")
+act, ret = mpc_policy(env1, 4, 2)(env1.reset_state())
+act, ret, warm = cem_policy(env1, num_candidates=4, num_iters=1, num_elites=2,
+                            horizon=2)(env1.reset_state())
+assert act.shape == (1, 2) and warm.shape == (2, 1, 2)
 blocked = ("jax", "flax", "optax", "orbax", "marl_traffic_intersection_tpu")
 assert not any(m.split(".")[0] in blocked for m in sys.modules if sys.modules[m] is not None)
 print("ok")

@@ -10,7 +10,8 @@ import train as jax_train
 from marl_traffic_intersection_tpu.utils.profiling import StepsPerSecond as JaxStepsPerSecond
 from marl_traffic_intersection_tpu_torch import evaluate, train
 from marl_traffic_intersection_tpu_torch.utils.checkpoint import restore_checkpoint
-from marl_traffic_intersection_tpu_torch.utils.profiling import StepsPerSecond, trace_profile
+from marl_traffic_intersection_tpu_torch.utils.profiling import (StepsPerSecond, records,
+                                                                  trace_profile)
 
 from . import _torch_port  # noqa: F401  (one torch thread per test worker)
 
@@ -139,6 +140,20 @@ def test_trace_profile_writes_a_chrome_trace(tmp_path):
         torch.ones(8).add_(1)
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "aten::add_" for e in events)
+
+
+def test_raw_records_sum_as_key_averages():
+    """``records`` reads the profiler's raw records: the same counts and
+    total times by name as ``key_averages()``, here on the CPU's records."""
+    x = torch.zeros(4)
+    with trace_profile() as prof:
+        for _ in range(50):
+            x = (x + 1).sum(0, keepdim=True).expand(4) * 1
+    got = records(prof, torch.autograd.DeviceType.CPU)
+    want = {e.key: (e.count, e.cpu_time_total) for e in prof.key_averages()}
+    assert set(got) == set(want) and "aten::add" in got
+    for name, (n, us) in want.items():
+        assert got[name][0] == n and got[name][1] == pytest.approx(us, rel=1e-9, abs=1e-6), name
 
 
 def test_profile_flag_traces_the_last_update(tmp_path, capsys):
