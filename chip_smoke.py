@@ -1,30 +1,42 @@
 """Smoke test of the PyTorch port on one NVIDIA card (H100).
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --k1-baseline DIR [DIR ...]   # also times DIR/lidar.cu
+  python3 chip_smoke.py --baseline DIR [DIR ...]  # also times DIR/lidar.cu, DIR/libm.cu
 
 Phases, one line each; any failure exits nonzero:
   1. device   the card's name, count, and nvidia-smi's name and power limit;
               no CUDA device -> exit 1
   2. build    every CUDA source of the port (and the CPU libm shim) built with
-              nvcc/g++ in parallel, with ptxas's register and spill lines
-  3. libm     the glibc-faithful sinf/cosf/tanf/atan2f/hypotf kernels on 2^22
+              nvcc/g++ in parallel, with ptxas's register and spill lines; with
+              --baseline, cuobjdump's count of each libm kernel's SASS
+              instructions (calls, local loads and stores, branches, divisions'
+              reciprocals), ours and each baseline's
+  3. libm     the glibc-faithful sincosf/tanf/atan2f/hypotf kernels on 2^22
               seeded inputs, bit-equal to the same header built for this
-              machine's CPU (decides); against this machine's glibc (shown)
+              machine's CPU (decides); against this machine's glibc (shown);
+              device times at (4096, 4) beside torch's call (sin + cos for
+              sincosf), in turns with the same functions of each --baseline
+              build (its sinf + cosf pair where it has no sincosf); the same
+              again after phase 5 on the operands the main path last passed,
+              once for each shape it launched (tanf: the steering angles)
   4. K1       the lidar kernel against its plain PyTorch version on the card,
               bit-equal, at the main path's 4096x4 shapes, on 36-slot fuzz
               shapes and on NaN/inf/-0.0/screen-edge poses; device times at
-              4096x4 M=4 and 512x8 M=36 (and, with --k1-baseline, those of
+              4096x4 M=4 and 512x8 M=36 (and, with --baseline, those of
               other builds of lidar.cu, in turns), plain and bound times
   5. main     VectorEnv(4096 envs x 4 agents) with a seeded 256-256 bf16
               ActorCriticMLP in the loop for 200 steps, through the kernels
-              (launch counters); then 64 envs x 100 steps on the card and on
-              the CPU with the same resets and actions, bit-equal
+              (launch counters), the libm kernels (at every shape launched)
+              and K1 on the last step's operands bit-equal to their plain
+              versions; then 64 envs x 100
+              steps on the card and on the CPU with the same resets and
+              actions, bit-equal
   6. train    the train entry point (PPO) at 4096 x 4, rollout 64, 4 epochs x
               4 minibatches, bf16 MLP: 3 updates with a checkpoint, then one
               more by auto-resume; finite losses, 48 optimizer steps, K1
               launched 64 x 3 times and every kernel at least once (launch
-              counters); env-steps/s, the rollout/update split and peak
+              counters), each on its last operands at each shape bit-equal
+              to its plain version; env-steps/s, the rollout/update split and peak
               memory; then the same entry point at the same size for 4
               updates each of the MLP with --norm-reward, conv, central and
               attention: finite losses, K1 launched 64 x 4 times, the split,
@@ -45,7 +57,9 @@ Phases, one line each; any failure exits nonzero:
               widths w that ran (M = 40 at the full width) and every kernel
               at least once; env-steps/s, the widths run, launches and
               device reads per step, the NPC loops' rounds, alive slots per
-              env (batch max and mean), peak memory; the first two also a
+              env (batch max and mean), peak memory, and every libm kernel
+              on the last step's operands, at each shape it launched at,
+              bit-equal to its CPU build; the first two also a
               profile (busy share, top kernels) and the device time of the
               NPC update and of its dense plan at the width most steps ran.
               Then 100 steps in the fast NPC mode (with a profile) and 50
@@ -60,7 +74,9 @@ Phases, one line each; any failure exits nonzero:
               schedules, whose cleanup replays and collision cascade must
               both have run, bit-equal to the serial transcription. Last,
               the train entry point with --traffic --density 1.0 at 4096 x
-              4: 3 updates and one more by auto-resume, finite losses
+              4: 3 updates and one more by auto-resume, finite losses, the
+              kernels launched on their last operands at each shape
+              bit-equal to their plain versions
   8. policies the twelve shipped policies (the committed numpy exports) loaded
               onto the card; each family's forward on 4096 seeded observations
               on the card and on the CPU within the CPU tests' bf16
@@ -75,7 +91,8 @@ Phases, one line each; any failure exits nonzero:
               200 with policy_attn_multi, policy_gru_multi, policy_central_cfg4
               and policy_sac_multi: finite rewards, K1 launched once per step
               at M = 8 + w (w the NPC pool's width: 8, 16 or 32), K1 on the
-              last obstacle set of each M bit-equal to its plain version,
+              last obstacle set of each M and every libm kernel launched on
+              its last operands at each shape bit-equal to their plain versions,
               completions, crashes and env-steps/s; serve with
               policy_mlp_multi and policy_gru_multi on a free local port, 3
               requests each (1 row, 300 rows, and a third of 256 rows or a GRU
@@ -114,8 +131,9 @@ Phases, one line each; any failure exits nonzero:
               step on the card, on the CPU and with backend="native" (2000
               steps); evaluate --config 1 --episodes 3 with --policy scripted and
               with policy_mlp_cfg1 on the card, every episode a success; 200
-              steps of config 2 (traffic), finite, K1 once per step at M=33 and
-              bit-equal to its plain version there
+              steps of config 2 (traffic), finite, K1 once per step at M=33,
+              K1 and every libm kernel launched bit-equal to their plain
+              versions on the last step's operands, at each shape
  12. planning snapshot planning (algos/mcts.py) on config 1's left turn, closed
               loop for 5 planned steps each: random shooting (mpc_policy, 256
               candidates, horizon 20) and CEM (cem_policy, 64 candidates, 4
@@ -133,8 +151,11 @@ device time of the kernel over many launches. "event_ms" is the CUDA-event
 time of back-to-back calls of the wrapper, which includes the host's
 dispatch whenever a launch is shorter than the wrapper's Python call.
 "launch_floor_ms" (libm rows) is the device time of the smallest launch, a
-torch.add of two 1-element tensors. "launches" counts the main phase's
-launches, "launches_train" those of the train phase's 3 updates,
+torch.add of two 1-element tensors; a libm row's "ms" and "library_ms" are
+at (4096, 4) on uniform operands, "baselines" holds the --baseline builds'
+times there, and "main_path" the same times on the operands the main path
+last passed, one entry for each shape it launched. "launches" counts the main
+phase's launches, "launches_train" those of the train phase's 3 updates,
 "launches_traffic" those of the traffic phase's 200 narrowed exact steps,
 "launches_eval_config4" those of 200 config-4 evaluate steps with the GRU
 policy, "launches_gru_train" those of the 3 GRU updates at 4096 x 4 (and
@@ -195,12 +216,13 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps, match=None, tries=5):
-    """Mean device milliseconds per launch of the kernels whose name contains
-    ``match`` (all kernels if None), from the self device time torch.profiler
-    records over ``reps`` calls of ``fn``, each making one launch. The
-    profiler now and then loses a window's kernel records; such a window is
-    profiled again, and after ``tries`` the mean is over the launches kept."""
+def device_ms(fn, reps, match=None, tries=5, per_call=1):
+    """Mean device milliseconds per call of ``fn`` in the kernels whose name
+    contains ``match`` (all kernels if None), from the self device time
+    torch.profiler records over ``reps`` calls, each making ``per_call``
+    launches. The profiler now and then loses a window's kernel records; such
+    a window is profiled again, and after ``tries`` the mean is over the
+    launches kept."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -217,13 +239,132 @@ def device_ms(fn, reps, match=None, tries=5):
                sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
                    for e in evs))
         best = max(best, got)
-        if got[0] == reps:
+        if got[0] == reps * per_call:
             break
         phase("timing", f"the profiler recorded {got[0]} launches of {match!r} in {reps} calls")
     launches, us = best
     if not launches or us <= 0:
         raise RuntimeError(f"the profiler recorded no device time for {match!r}")
-    return us / 1e3 / launches
+    return us / 1e3 / launches * per_call
+
+
+SASS_OPS = ("CALL", "LDL", "STL", "BRA", "BSSY", "MUFU.RCP", "DFMA", "DMUL", "DADD", "F2F",
+            "F2I", "I2F")
+
+
+def sass_counts(so) -> dict:
+    """cuobjdump's SASS of the library ``so``: for each kernel (mangled name),
+    its instruction count and the count of each opcode of SASS_OPS (a
+    prefix: "F2F" counts every F2F.*). Code that a kernel calls is counted
+    in it. Empty if cuobjdump is missing or fails."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([exe, "-sass", str(so)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return {}
+    out, cur = {}, None
+    for ln in text.splitlines():
+        if m := re.search(r"Function : (\S+)", ln):
+            cur = out.setdefault(m.group(1), collections.Counter())
+        elif cur is not None and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", ln)):
+            op = m.group(1)
+            cur["instructions"] += 1
+            for k in SASS_OPS:
+                if op == k or op.startswith(k + ".") or ("." in k and op.startswith(k)):
+                    cur[k] += 1
+    return {k: dict(v) for k, v in out.items()}
+
+
+def outputs(r) -> tuple:
+    return r if isinstance(r, tuple) else (r,)
+
+
+def sin_cos(t):
+    return torch.sin(t), torch.cos(t)
+
+
+# libm kernel: bytes moved and f64 operations per element, torch's call for
+# the same function (not glibc-exact) and its launches, the function of the
+# JAX package it replaces, the kernel's name in libm.cu
+LibmSpec = collections.namedtuple("LibmSpec", "bytes ops lib_fn lib_launches replaces key")
+LIBM = {
+    "sincosf": LibmSpec(12, 28, sin_cos, 2,
+                        "marl_traffic_intersection_tpu/ops/exact_trig.py:145, :162",
+                        "sincosf_kernel"),
+    "tanf": LibmSpec(8, 40, torch.tan, 1, "marl_traffic_intersection_tpu/ops/exact_trig.py:299",
+                     "TanF"),
+    "atan2f": LibmSpec(12, 40, torch.atan2, 1,
+                       "marl_traffic_intersection_tpu/ops/exact_libm.py:279", "Atan2F"),
+    "hypotf": LibmSpec(12, 6, torch.hypot, 1,
+                       "marl_traffic_intersection_tpu/ops/exact_libm.py:188", "HypotF"),
+}
+
+def baseline_libm(so) -> dict:
+    """The functions of another build of libm.cu (``so``): name -> (a call on
+    contiguous float32 tensors on the card, its launches). Where it has no
+    sincosf, its sinf and cosf stand for it, two launches."""
+    from marl_traffic_intersection_tpu_torch.ops import libm, native
+
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for name, (nin, nout) in libm.ARITY.items():
+        f = getattr(lib, "libm_" + name, None)
+        if f is None:
+            continue
+        f.argtypes = [ctypes.c_void_p] * (nin + nout) + [ctypes.c_long, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+
+        def call(*xs, f=f, nout=nout, name=name):
+            outs = [torch.empty_like(xs[0]) for _ in range(nout)]
+            rc = f(*map(native.ptr, (*xs, *outs)), outs[0].numel(), native.stream_of(outs[0]))
+            native.check(rc, lib, f"baseline {name}")
+            return outs[0] if nout == 1 else tuple(outs)
+        fns[name] = (call, 1)
+    if "sincosf" not in fns and {"sinf", "cosf"} <= set(fns):
+        fns["sincosf"] = (lambda t: (fns["sinf"][0](t), fns["cosf"][0](t)), 2)
+    return fns
+
+
+def libm_times(name, args, bases) -> dict:
+    """libm kernel ``name`` on ``args`` (contiguous float32 tensors on the
+    card) in turns (a, b, c, c, b, a) with torch's call and with the same
+    function of each baseline build (``bases``: directory -> baseline_libm's
+    functions, each first held bit for bit against ours): device ms per call,
+    each the mean of two turns, and the bound for these operands."""
+    from marl_traffic_intersection_tpu_torch.ops import libm
+
+    spec = LIBM[name]
+    ours = getattr(libm, name)
+    variants = {"libm.cu": (lambda: ours(*args), 1),
+                "torch": (lambda: spec.lib_fn(*args), spec.lib_launches)}
+    want = outputs(ours(*args))
+    for d, fns in bases.items():
+        if name in fns:
+            fn, k = fns[name]
+            if not all(bits_equal(a, b) for a, b in zip(outputs(fn(*args)), want)):
+                raise RuntimeError(f"the baseline {d}'s {name} differs from libm.cu's")
+            variants[d] = (lambda fn=fn: fn(*args), k)
+    times = {v: [] for v in variants}
+    for v in list(variants) + list(variants)[::-1]:
+        fn, k = variants[v]
+        times[v].append(device_ms(fn, 200, per_call=k))
+    ms = {v: sum(t) / len(t) for v, t in times.items()}
+    n = args[0].numel()
+    by_bytes, by_ops = n * spec.bytes / HBM_BYTES_PER_S, n * spec.ops / F64_OPS_PER_S
+    out = dict(ms=ms["libm.cu"], library_ms=ms["torch"], bound_ms=1e3 * max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    base = {v: dict(ms=t, launches_per_call=variants[v][1]) for v, t in ms.items()
+            if v not in ("libm.cu", "torch")}
+    if base:
+        out["baselines"] = base
+    return out
+
+
+def per_variant(times) -> dict:
+    """libm_times' device ms by variant, for a phase line."""
+    return {"libm.cu": round(times["ms"], 7), "torch": round(times["library_ms"], 7),
+            **{d: round(b["ms"], 7) for d, b in times.get("baselines", {}).items()}}
 
 
 def ptxas_info(log):
@@ -271,10 +412,10 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--k1-baseline", metavar="DIR", nargs="+", default=[],
-                    help="directories each holding another lidar.cu (and the headers it "
-                         "includes), e.g. csrc/ of an earlier commit; each kernel is checked "
-                         "and timed in turns with this one")
+    ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
+                    help="directories each holding another lidar.cu and libm.cu (and the "
+                         "headers they include), e.g. csrc/ of an earlier commit; each kernel "
+                         "is checked and timed in turns with this one's")
     opts = ap.parse_args()
 
     # ---- 1. device
@@ -292,14 +433,18 @@ def main() -> int:
     # ---- 2. build (nothing is built ahead of time; all sources at once)
     from marl_traffic_intersection_tpu_torch.ops import native
     t0 = time.perf_counter()
-    baselines = {}            # other lidar.cu files, built beside ours with the same flags
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    for j, d in enumerate(opts.k1_baseline):
-        native.BUILD.mkdir(parents=True, exist_ok=True)
-        so = native.BUILD / f"lidar-baseline-{j}.so"
-        baselines[d] = (so, subprocess.Popen(
-            [nvcc, *native.NVCC_FLAGS, os.path.join(d, "lidar.cu"), "-o", str(so)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    native.BUILD.mkdir(parents=True, exist_ok=True)
+
+    def start_baseline(source, j, d):
+        so = native.BUILD / f"{source.split('.')[0]}-baseline-{j}.so"
+        return so, subprocess.Popen(
+            [nvcc, *native.NVCC_FLAGS, os.path.join(d, source), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    # other lidar.cu and libm.cu files, built beside ours with the same flags
+    baselines = {d: start_baseline("lidar.cu", j, d) for j, d in enumerate(opts.baseline)}
+    libm_bases = {d: start_baseline("libm.cu", j, d) for j, d in enumerate(opts.baseline)}
     sources = ["libm.cu", "lidar.cu", "libm_host.cpp"]
     started = [(s, native.start_build(s)) for s in sources]
     for s, st in started:
@@ -318,6 +463,17 @@ def main() -> int:
             return 1
         baselines[d] = (so, kernel_regs(ptxas_info(log), "lidar_kernel"))
         phase("build", f"baseline {d}/lidar.cu: {baselines[d][1]}")
+    if opts.baseline:
+        sass = sass_counts(native.library_path("libm.cu"))
+        phase("build", f"libm.cu SASS by kernel: {sass or 'cuobjdump gave nothing'}")
+    for d, (so, proc) in libm_bases.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            phase("build", f"FAIL: the baseline {d}/libm.cu:\n{log}")
+            return 1
+        libm_bases[d] = baseline_libm(so)
+        phase("build", f"baseline {d}/libm.cu: {sorted(libm_bases[d])}; "
+                       f"ptxas {ptxas_info(log)}; SASS by kernel {sass_counts(so)}")
     phase("build", f"all built in {time.perf_counter() - t0:.1f} s")
 
     from marl_traffic_intersection_tpu_torch import (ActorCriticMLP, EnvConfig,
@@ -337,56 +493,45 @@ def main() -> int:
                        -2 * np.pi, np.pi / 4], np.float32)
     x = np.concatenate([rng.uniform(-7, 7, 1 << 22).astype(np.float32), axis])
     y = np.concatenate([rng.uniform(-7, 7, 1 << 22).astype(np.float32), axis[::-1]])
-    specs = {   # name: (args, bytes moved per element, f64 ops per element, library call,
-                #        replaces, the kernel's functor in libm.cu)
-        "sinf": ((x,), 8, 14, torch.sin, "marl_traffic_intersection_tpu/ops/exact_trig.py:145",
-                 "SinF"),
-        "cosf": ((x,), 8, 14, torch.cos, "marl_traffic_intersection_tpu/ops/exact_trig.py:162",
-                 "CosF"),
-        "tanf": ((x,), 8, 40, torch.tan, "marl_traffic_intersection_tpu/ops/exact_trig.py:299",
-                 "TanF"),
-        "atan2f": ((y, x), 12, 40, torch.atan2,
-                   "marl_traffic_intersection_tpu/ops/exact_libm.py:279", "Atan2F"),
-        "hypotf": ((x * 100, y * 100), 12, 6, torch.hypot,
-                   "marl_traffic_intersection_tpu/ops/exact_libm.py:188", "HypotF"),
-    }
+    uniform = {"sincosf": (x,), "tanf": (x,), "atan2f": (y, x), "hypotf": (x * 100, y * 100)}
     glibc = os.confstr("CS_GNU_LIBC_VERSION")
     one = torch.ones(1, device=dev)
     floor_ms = device_ms(lambda: torch.add(one, one), 200)
     phase("libm", f"launch floor: torch.add of two 1-element tensors, device {floor_ms:.7f} ms; "
                   f"card {card}")
     bshape = (4096, 4)    # the env's (B, N) at the main path
-    for name, (args, bpe, ope, lib_fn, replaces, functor) in specs.items():
+    for name, args in uniform.items():
+        key = LIBM[name].key
         fn = getattr(libm, name)
-        dargs = [torch.from_numpy(a).to(dev) for a in args]
-        got = fn(*dargs).cpu().numpy()
-        want = libm.transcribed_np(name, *args)
-        n_diff = int((got.view(np.int32) != want.view(np.int32)).sum())
-        n_glibc = int((got.view(np.int32) != libm.glibc_np(name, *args).view(np.int32)).sum())
+        got = outputs(fn(*[torch.from_numpy(a).to(dev) for a in args]))
+        want = outputs(libm.transcribed_np(name, *args))
+        glib = outputs(libm.glibc_np(name, *args))
+        n_diff = sum(int((g.cpu().numpy().view(np.int32) != w.view(np.int32)).sum())
+                     for g, w in zip(got, want))
+        n_glibc = sum(int((g.cpu().numpy().view(np.int32) != w.view(np.int32)).sum())
+                      for g, w in zip(got, glib))
         if n_diff:
-            phase("libm", f"FAIL {name}: {n_diff} of {got.size} differ from the CPU build")
+            phase("libm", f"FAIL {name}: {n_diff} of {got[0].numel() * len(got)} results differ "
+                          f"from the CPU build")
             return 1
         small = [torch.from_numpy(a[:bshape[0] * bshape[1]].reshape(bshape)).to(dev)
                  for a in args]
         small_cpu = [t.cpu() for t in small]
-        n = small[0].numel()
         kernels[name] = dict(
-            name=name, route="cuda", source=SRC + "libm.cu", replaces=replaces,
-            max_abs_err=float(np.abs(got.astype(np.float64) - want).max()),
-            ms=device_ms(lambda: fn(*small), 200, functor),
+            name=name, route="cuda", source=SRC + "libm.cu", replaces=LIBM[name].replaces,
+            max_abs_err=max(float(np.abs(g.cpu().numpy().astype(np.float64) - w).max())
+                            for g, w in zip(got, want)),
             event_ms=cuda_ms(lambda: fn(*small), 200),
             plain_ms=host_ms(lambda: fn(*small_cpu), 20),
-            bound_ms=1e3 * max(n * bpe / HBM_BYTES_PER_S, n * ope / F64_OPS_PER_S),
-            bound_by="bytes" if n * bpe / HBM_BYTES_PER_S >= n * ope / F64_OPS_PER_S
-            else "operations",
-            library_ms=device_ms(lambda: lib_fn(*small), 200),
-            launch_floor_ms=floor_ms,
-            **kernel_regs(ptxas, functor))
+            launch_floor_ms=floor_ms, **kernel_regs(ptxas, key))
+        times = libm_times(name, small, libm_bases)
+        kernels[name].update(times)
         k = kernels[name]
-        phase("libm", f"{name}: bit-equal to the CPU build on {got.size} inputs; "
-                      f"{n_glibc} differ from this machine's {glibc} (shown only); at {bshape}: "
-                      f"device {k['ms']:.5f} ms (events, with the host: {k['event_ms']:.4f}); "
-                      f"torch.{lib_fn.__name__}, not glibc-exact, device {k['library_ms']:.5f} ms")
+        phase("libm", f"{name}: bit-equal to the CPU build on {got[0].numel()} inputs; "
+                      f"{n_glibc} results differ from this machine's {glibc} (shown only); at "
+                      f"{bshape}, uniform(-7, 7): {per_variant(times)}; events, with the host: "
+                      f"{k['event_ms']:.4f} ms; torch's call is not glibc-exact; "
+                      f"{k['registers']} registers, {k['stack_bytes']} B stack; card {card}")
 
     # ---- 4. K1
     def on_card(arrays):
@@ -501,12 +646,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     native.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        state, out = venv.step(state, model.act(obs))
-        obs = out.obs
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with k1_counted() as rec:
+        t0 = time.perf_counter()
+        for _ in range(200):
+            state, out = venv.step(state, model.act(obs))
+            obs = out.obs
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
     if obs.shape != (4096, 4, 127) or not bool(torch.isfinite(obs).all()):
         phase("main", f"FAIL: obs {tuple(obs.shape)} finite={bool(torch.isfinite(obs).all())}")
@@ -515,15 +661,24 @@ def main() -> int:
         phase("main", f"FAIL: K1 launched {launches.get('lidar_scan', 0)} times in 200 steps")
         return 1
     missing = [k for k in kernels if launches.get(k, 0) == 0]
-    if missing:
-        phase("main", f"FAIL: kernels not launched on the main path: {missing}")
+    held, bad = held_to_plain(rec, kernels)
+    if missing or bad:
+        phase("main", f"FAIL: kernels not launched on the main path: {missing}; {bad}")
         return 1
     for k in kernels:
         kernels[k]["launches"] = launches[k]
     phase("main", f"4096x4, 200 steps, bf16 MLP in the loop: "
                   f"{4096 * 200 / secs:.1f} env-steps/s, peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}; "
-                  f"card {card}")
+                  f"the kernels on the last step's operands bit-equal to their plain versions: "
+                  f"{held}; card {card}")
+    # each libm kernel on the operands the main path last passed it, per shape
+    for (name, shape), xs in sorted(rec.libm.items()):
+        args = [t.contiguous() for t in torch.broadcast_tensors(*xs)]
+        times = libm_times(name, args, libm_bases)
+        kernels[name].setdefault("main_path", []).append(dict(shape=list(shape), **times))
+        phase("libm", f"{name} on the main path's last operands at {shape}: "
+                      f"device ms per call {per_variant(times)}; card {card}")
     zeros = torch.zeros((4096, 4, 2), device=dev)
     prof = profile_steps(lambda: venv.step(state, zeros)[1].obs.sum(), 10)
     phase("main", f"profile of 10 steps, zero actions (as the bench): "
@@ -638,7 +793,8 @@ def train_phase(dev, card, kernels) -> int:
         torch.cuda.reset_peak_memory_stats()
         native.reset_launches()
         t0 = time.perf_counter()
-        logs, _ = run_train(argv + ["--updates", "3"])
+        with k1_counted() as rec:
+            logs, _ = run_train(argv + ["--updates", "3"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = dict(native.LAUNCHES)
@@ -652,14 +808,16 @@ def train_phase(dev, card, kernels) -> int:
                            f"{launches.get('lidar_scan', 0)} times (want {3 * T})")
             return 1
         missing = [k for k in kernels if launches.get(k, 0) == 0]
-        if missing:
-            phase("train", f"FAIL: kernels not launched in training: {missing}")
+        held, bad = held_to_plain(rec, kernels)
+        if missing or bad:
+            phase("train", f"FAIL: kernels not launched in training: {missing}; {bad}")
             return 1
         for k in kernels:
             kernels[k]["launches_train"] = launches[k]
         phase("train", f"{B}x{N}, rollout {T}, 3 updates in {secs:.3f} s (builds warm): "
                        f"env-steps/s by update {[ln['env_steps_per_s'] for ln in logs]}, "
-                       f"launches {launches}")
+                       f"launches {launches}; the kernels on the last step's operands "
+                       f"bit-equal to their plain versions: {held}")
         split_line("mlp", logs, None, peak, card)
         resumed, prof = run_train(argv + ["--updates", "4", "--profile",
                                           os.path.join(TRACES, "train_mlp.json.gz")])
@@ -763,7 +921,8 @@ def k1_counted():
     """K1's launches by obstacle count M (``.by_m``) while the block runs, the
     env's ``lidar_scan`` wrapped; ``.args`` keeps the last launch's arguments,
     ``.args_by_m`` the last launch's at each M, and ``.libm`` each libm
-    kernel's last operands on the card, for ``held_to_plain``."""
+    kernel's last operands on the card at each shape it launched at, keyed
+    (name, shape), for ``held_to_plain``."""
     from marl_traffic_intersection_tpu_torch.core import env as env_module
     from marl_traffic_intersection_tpu_torch.ops import libm
 
@@ -777,7 +936,7 @@ def k1_counted():
 
     def recorded(name, *xs):
         if xs[0].is_cuda:
-            rec.libm[name] = xs
+            rec.libm[name, tuple(torch.broadcast_shapes(*(x.shape for x in xs)))] = xs
         return apply(name, *xs)
 
     env_module.lidar_scan, libm._apply = counted, recorded
@@ -788,18 +947,19 @@ def k1_counted():
 
 
 def held_to_plain(rec, kernels) -> tuple:
-    """K1 on the last arguments ``k1_counted`` kept at each obstacle count M,
-    and every libm kernel of ``kernels`` on its last operands, against their
-    plain versions (``lidar_scan_ref``; the same wrapper on the CPU, the host
-    build of libm.cu's functions), bit for bit: (the shapes held, the
+    """K1 (if in ``kernels``) on the last arguments ``k1_counted`` kept at each
+    obstacle count M, and every libm kernel of ``kernels`` on its last
+    operands at each shape it launched at (both outputs of sincosf), against
+    their plain versions (``lidar_scan_ref``; the same
+    wrapper on the CPU, the host glibc), bit for bit: (the shapes held, the
     failures)."""
     from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
     from marl_traffic_intersection_tpu_torch.ops import libm, lidar_cuda
 
     held, bad = [], []
-    if not rec.args_by_m:
+    if "lidar_scan" in kernels and not rec.args_by_m:
         bad.append("lidar_scan never launched")
-    for M, args in sorted(rec.args_by_m.items()):
+    for M, args in sorted(rec.args_by_m.items() if "lidar_scan" in kernels else ()):
         got, ref = lidar_cuda.lidar_scan(*args), lidar_scan_ref(*args)
         B, N = args[0].shape
         held.append(f"lidar_scan {B}x{N} M={M}")
@@ -807,19 +967,28 @@ def held_to_plain(rec, kernels) -> tuple:
             bad.append(f"lidar_scan differs from lidar_scan_ref on "
                        f"{int((got.cpu().view(torch.int32) != ref.cpu().view(torch.int32)).sum())}"
                        f" rays at {held[-1]}")
-    for name in (k for k in kernels if k != "lidar_scan"):
-        xs = rec.libm.get(name)
-        if xs is None:
-            bad.append(f"{name} never launched")
+    launched = {name for name, _ in rec.libm}
+    bad += [f"{name} never launched" for name in kernels
+            if name != "lidar_scan" and name not in launched]
+    for (name, shape), xs in sorted(rec.libm.items()):
+        if name not in kernels:
             continue
         fn = getattr(libm, name)
-        got, want = fn(*xs), fn(*(x.cpu() for x in xs))
-        held.append(f"{name} {tuple(got.shape)}")
-        if not bits_equal(got, want):
-            bad.append(f"{name} differs from its CPU build on "
-                       f"{int((got.cpu().view(torch.int32) != want.view(torch.int32)).sum())} of "
-                       f"{got.numel()} operands")
+        got, want = outputs(fn(*xs)), outputs(fn(*(x.cpu() for x in xs)))
+        held.append(f"{name} {shape}")
+        for g, w in zip(got, want):
+            if not bits_equal(g, w):
+                bad.append(f"{name} differs from its CPU build on "
+                           f"{int((g.cpu().view(torch.int32) != w.view(torch.int32)).sum())} of "
+                           f"{g.numel()} operands at {shape}")
     return held, bad
+
+
+def held_seen(rec, kernels) -> tuple:
+    """``held_to_plain`` for the kernels of ``kernels`` that ``rec`` saw
+    launched."""
+    seen = {name for name, _ in rec.libm} | ({"lidar_scan"} if rec.args_by_m else set())
+    return held_to_plain(rec, {k: v for k, v in kernels.items() if k in seen})
 
 
 def traffic_runs(dev, modes, B=64):
@@ -951,6 +1120,11 @@ def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, **cf
                          f"{dict(k1.by_m)} (want {steps} at M in {sorted(allowed)}); kernels "
                          f"not launched {missing}")
         return None
+    # K1 is held per M by the traffic phase; here the libm kernels, per shape
+    held, bad = held_to_plain(k1, {k: v for k, v in kernels.items() if k != "lidar_scan"})
+    if bad:
+        phase("traffic", f"FAIL {label}: {bad}")
+        return None
     widths = {k: v for k, v in stats.items() if "_width_" in k}
     prof, top, breakdown = None, None, None
     if profile:
@@ -974,8 +1148,9 @@ def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, **cf
                      f"{float(per_env.mean()):.3f}, batch max by step mean "
                      f"{float(per_env.amax(1).mean()):.2f}; widths run {widths}; K1 launches by "
                      f"M {dict(k1.by_m)}; kernel launches {launches} "
-                     f"({sum(launches.values()) / steps:.1f} per step); device reads and NPC "
-                     f"loop rounds {stats} ({reads:.2f} reads per step); peak memory "
+                     f"({sum(launches.values()) / steps:.1f} per step); the libm kernels on "
+                     f"the last step's operands bit-equal to their plain versions: {held}; "
+                     f"device reads and NPC loop rounds {stats} ({reads:.2f} reads per step); peak memory "
                      f"{peak / 2**20:.1f} MiB; profile of 5 steps {json.dumps(prof)}; top "
                      f"kernels (name, ms, launches per step) {top}; where the NPC update's "
                      f"device time goes {json.dumps(breakdown)}; card {card}")
@@ -1109,21 +1284,24 @@ def traffic_phase(dev, card, kernels) -> int:
                 str(TRAIN_T), "--log-every", "1", "--traffic", "--density", "1.0",
                 "--checkpoint", os.path.join(tmp, "run")]
         torch.cuda.reset_peak_memory_stats()
-        logs, _ = run_train(argv + ["--updates", "3"])
-        resumed, _ = run_train(argv + ["--updates", "4"])
+        with k1_counted() as rec:
+            logs, _ = run_train(argv + ["--updates", "3"])
+            resumed, _ = run_train(argv + ["--updates", "4"])
         peak = torch.cuda.max_memory_allocated()
         saved = restore_checkpoint(argv[-1])
+        held, bad = held_seen(rec, kernels)
         if (len(logs) != 3 or not losses_finite(logs) or [ln["update"] for ln in resumed] != [3]
                 or not losses_finite(resumed) or saved["update"] != 4
-                or int(saved["env_state"]["npc.next_uid"].sum()) == 0):
+                or int(saved["env_state"]["npc.next_uid"].sum()) == 0 or bad):
             phase("traffic", f"FAIL: train --traffic logged {logs} then {resumed}; saved update "
-                             f"{saved['update']}")
+                             f"{saved['update']}; {bad}")
             return 1
     phase("traffic", f"train --traffic --density 1.0, {TRAIN_B}x{TRAIN_N}, rollout {TRAIN_T}: "
                      f"env-steps/s by update {[ln['env_steps_per_s'] for ln in logs + resumed]}, "
                      f"rollout s {[ln['rollout_s'] for ln in logs + resumed]}, update s "
                      f"{[ln['update_s'] for ln in logs + resumed]}; peak memory "
-                     f"{peak / 2**20:.1f} MiB; card {card}")
+                     f"{peak / 2**20:.1f} MiB; the kernels on the last step's operands bit-equal "
+                     f"to their plain versions: {held}; card {card}")
     return 0
 
 # the shipped policies: export name -> model family; README:231-240's mean
@@ -1273,14 +1451,14 @@ def policies_phase(dev, card, kernels) -> int:
                             "--policy", "checkpoint", "--checkpoint", f"artifacts/{name}",
                             "--model", SHIPPED[name]])
         launches = dict(native.LAUNCHES)
-        held, bad = held_to_plain(k1, {"lidar_scan": kernels["lidar_scan"]})
+        held, bad = held_to_plain(k1, {k: v for k, v in kernels.items() if launches.get(k)})
         phase("policies", f"config 4, {name}, 4096 x 8, 200 exact steps: completions "
                           f"{got['successes']}, crashes {got['crashes_vehicle']} vehicle + "
                           f"{got['crashes_object']} object in {got['episodes']} episodes, "
                           f"mean episode reward {got['mean_ep_reward']}, "
                           f"{got['env_steps_per_s']} env-steps/s, K1 launches by M "
-                          f"{dict(k1.by_m)}, K1 on each M's last obstacle set bit-equal to "
-                          f"its plain version: {held}, peak memory "
+                          f"{dict(k1.by_m)}, the kernels on the last step's operands (K1 at "
+                          f"each M) bit-equal to their plain versions: {held}, peak memory "
                           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; card {card}")
         if not np.isfinite(got["mean_ep_reward"]) or sum(k1.by_m.values()) != 200 \
                 or not set(k1.by_m) <= {16, 24, 40} or launches.get("lidar_scan", 0) != 200 \
@@ -1749,14 +1927,15 @@ def gym_phase(dev, card, kernels) -> int:
     config2 = {"traffic_flow": True, "traffic_density": 0.5, "ego_routes": [("IN_6", "OUT_2")]}
     with k1_counted() as rec:
         hist, wall = gym_run(config2, str(dev), 200)
-    held, bad = held_to_plain(rec, {k: v for k, v in kernels.items() if k == "lidar_scan"})
+    held, bad = held_seen(rec, kernels)
     finite = all(np.isfinite(h).all() for h in hist)
     if not finite or dict(rec.by_m) != {33: 200} or bad:
         phase("gym", f"FAIL: config-2 gym: finite {finite}, K1 launches by M "
                      f"{dict(rec.by_m)}; {bad}")
         return 1
     phase("gym", f"GymIntersectionEnv config 2 (traffic, density 0.5), 200 steps: finite, K1 "
-                 f"once per step at 1x1 M=33, bit-equal to its plain version ({held}); "
+                 f"once per step at 1x1 M=33; the kernels on the last step's operands bit-equal "
+                 f"to their plain versions ({held}); "
                  f"{k1_times(rec.args, kernels, 'gym_traffic')}; median wall ms per step "
                  f"{float(np.median(wall)):.4f}; card {card}")
     return 0

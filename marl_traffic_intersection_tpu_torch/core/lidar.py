@@ -55,8 +55,7 @@ def obstacle_boxes(sx, sy, sh, ox, oy, oh, om):
             & ((oh[:, None, :] - sh[:, :, None]).abs() < eps))
     active = om[:, None, :] & ~same
     hl, hw = CAR_LENGTH * 0.5, CAR_WIDTH * 0.5     # 27 and 12, exact in f32
-    c = libm.cosf(oh).abs()
-    s = libm.sinf(oh).abs()
+    s, c = (t.abs() for t in libm.sincosf(oh))
     ex = c * hl + s * hw
     ey = s * hl + c * hw
     inf = torch.inf
@@ -95,8 +94,8 @@ def lidar_scan_ref(sx, sy, sh, ox, oy, oh, om, num_lanes: int = 3,
                                  * np.float32(step_size)).to(dev)
     samples_max = dists.shape[0]
     ang = sh[..., None] + rel                                   # (B, N, R)
-    dx = libm.cosf(ang)
-    dy = -libm.sinf(ang)
+    s, dx = libm.sincosf(ang)
+    dy = -s
     px = torch.trunc(sx[..., None, None] + dx[..., None] * dists)   # (B, N, R, S)
     py = torch.trunc(sy[..., None, None] + dy[..., None] * dists)
     oob = (px < 0.0) | (px >= float(WIDTH)) | (py < 0.0) | (py >= float(HEIGHT))

@@ -145,8 +145,9 @@ def _plan(sx, sy, sv, sh, su, others, pi0, path, pool):
 
     # 2) longitudinal: cruise plus front-car braking (TrafficFlow.cpp:66-75)
     acc = torch.where(sv < _TARGET_SPEED, 0.5, torch.where(sv > _TARGET_SPEED_HI, _COAST, 0.0))
-    vx = libm.cosf(sh)[..., None]                       # (B, S, 1)
-    vy = -libm.sinf(sh)[..., None]
+    s, c = libm.sincosf(sh)
+    vx = c[..., None]                                   # (B, S, 1)
+    vy = -s[..., None]
     dx = x[:, None, :] - sx[..., None]                  # (B, S, M)
     dy = y[:, None, :] - sy[..., None]
     dist = libm.hypotf(dx, dy)
@@ -178,8 +179,9 @@ def _plan(sx, sy, sv, sh, su, others, pi0, path, pool):
     not_far = longi.abs() < _NOT_FAR
     mfx = sx[..., None] + vx * 20.0
     mfy = sy[..., None] + vy * 20.0
-    ofx = x + libm.cosf(heading) * 20.0
-    ofy = y - libm.sinf(heading) * 20.0
+    s, c = libm.sincosf(heading)
+    ofx = x + c * 20.0
+    ofy = y - s * 20.0
     fdx = ofx[:, None, :] - mfx
     fdy = ofy[:, None, :] - mfy
     fmag = libm.hypotf(fdx, fdy)

@@ -55,8 +55,9 @@ def car_physics_step(x, y, v, heading, steering_angle, throttle, steer,
     ang_vel = libm.div(v, WHEELBASE) * libm.tanf(steering_angle)
     heading = torch.where(v.abs() > 0.1, heading + ang_vel, heading)
     heading = wrap_angle(heading)
-    x = x + v * libm.cosf(heading)
-    y = y - v * libm.sinf(heading)
+    s, c = libm.sincosf(heading)
+    x = x + v * c
+    y = y - v * s
     return CarPhysicsOut(x, y, v, heading, steering_angle, acc)
 
 
@@ -69,8 +70,7 @@ _CORNERS = np.asarray([[CAR_LENGTH * 0.5, CAR_LENGTH * 0.5, -CAR_LENGTH * 0.5, -
 def car_corners(x, y, heading) -> torch.Tensor:
     """OBB corners, shape (..., 4, 2), in reference order (Car.cpp:86-103)."""
     lx, ly = libm.table(_CORNERS, x.device)
-    c = libm.cosf(heading)[..., None]
-    s = libm.sinf(heading)[..., None]
+    s, c = (t[..., None] for t in libm.sincosf(heading))
     wx = x[..., None] + lx * c - ly * s
     wy = y[..., None] + lx * s + ly * c
     return torch.stack([wx, wy], dim=-1)
@@ -82,8 +82,8 @@ def sat_overlap(corners_a, heading_a, corners_b, heading_b) -> torch.Tensor:
     corners_*: (..., 4, 2); heading_*: (...,), broadcastable. Returns bool (...).
     """
     heading_a, heading_b = torch.broadcast_tensors(heading_a, heading_b)
-    ca, sa = libm.cosf(heading_a), libm.sinf(heading_a)
-    cb, sb = libm.cosf(heading_b), libm.sinf(heading_b)
+    sa, ca = libm.sincosf(heading_a)
+    sb, cb = libm.sincosf(heading_b)
     ax = torch.stack([ca, -sa, cb, -sb], dim=-1)   # (..., 4) axis x components
     ay = torch.stack([sa, ca, sb, cb], dim=-1)     # (..., 4) axis y components
 

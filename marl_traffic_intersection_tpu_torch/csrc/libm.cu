@@ -13,10 +13,18 @@
 // hypotf_exact): Hopper has native fp64, so softfloat.py becomes plain
 // double arithmetic with explicit fma().
 //
-// Bound: memory. Each element reads 4 or 8 bytes and writes 4, against
-// ~20 f64 operations; at the env's (4096, 4) shapes a launch is far below
-// a microsecond of traffic, so launch latency dominates. The design is the
-// simplest that is right: one thread per element, grid-stride loop.
+// Bound: memory. Each element reads 4 or 8 bytes and writes 4 or 8, against
+// ~20-40 f64 and f32 operations; at the env's (4096, 4) shapes a launch is
+// far below a microsecond of traffic, so the launch itself and one thread's
+// chain of dependent operations set its time. So:
+//   * sinf and cosf of one angle are one launch (sincosf_kernel): every call
+//     site of the port takes both, and the pair shares glibc's reduction;
+//   * tanf's body runs the polynomial and one division once per warp on
+//     reduced operands (libm_f32.cuh), its |x| >= 120 fallback out of line;
+//   * every launcher keeps 256-thread blocks, one element per thread (64
+//     blocks for the main path's 16,384 elements): on an H100, blocks of 64,
+//     128, 512 and 1024 threads were all slower for sincosf and tanf at
+//     (4096, 4) (PERF.md, kernel table).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 //        -prec-div=true -prec-sqrt=true -shared -Xcompiler -fPIC
@@ -27,6 +35,13 @@
 namespace {
 
 constexpr int kThreads = 256;
+
+__global__ void sincosf_kernel(const float* __restrict__ x, float* __restrict__ s,
+                               float* __restrict__ c, long n) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x)
+    libm_f32::sincosf(x[i], s + i, c + i);
+}
 
 template <typename F>
 __global__ void unary_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -49,8 +64,6 @@ int blocks_for(long n) {
   return (int)(b < 65536 ? (b > 0 ? b : 1) : 65536);
 }
 
-struct SinF { __device__ float operator()(float x) const { return libm_f32::sinf(x); } };
-struct CosF { __device__ float operator()(float x) const { return libm_f32::cosf(x); } };
 struct TanF { __device__ float operator()(float x) const { return libm_f32::tanf(x); } };
 struct Atan2F {
   __device__ float operator()(float y, float x) const { return libm_f32::atan2f(y, x); }
@@ -77,11 +90,10 @@ int launch_binary(const float* a, const float* b, float* out, long n, void* stre
 
 extern "C" {
 
-int libm_sinf(const float* x, float* out, long n, void* stream) {
-  return launch_unary<SinF>(x, out, n, stream);
-}
-int libm_cosf(const float* x, float* out, long n, void* stream) {
-  return launch_unary<CosF>(x, out, n, stream);
+int libm_sincosf(const float* x, float* s, float* c, long n, void* stream) {
+  if (n > 0)
+    sincosf_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(x, s, c, n);
+  return (int)cudaGetLastError();
 }
 int libm_tanf(const float* x, float* out, long n, void* stream) {
   return launch_unary<TanF>(x, out, n, stream);

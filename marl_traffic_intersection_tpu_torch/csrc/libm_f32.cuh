@@ -23,6 +23,8 @@
 //              |x| < pi/4 an f64 polynomial, |x| < 120 the integer-quadrant
 //              reduction n = ((int)(x * 2/pi * 2^24) + 2^23) >> 24,
 //              r = fma(-n, pi/2, x), then the quadrant's f64 polynomial.
+//   sincosf    sinf and cosf of one angle from one test and one reduction:
+//              the two results are bit-equal to the separate calls.
 //   tanf       f64 reduction with a SEPARATE multiply and subtract (glibc
 //              builds tanf without FMA), then the all-f32 fdlibm kernel.
 //   atan2f     fdlibm f32 (__ieee754_atan2f + atanf).
@@ -44,8 +46,10 @@
 
 #ifdef __CUDACC__
 #define LIBM_HD __host__ __device__ __forceinline__
+#define LIBM_COLD static __host__ __device__ __noinline__
 #else
 #define LIBM_HD static inline
+#define LIBM_COLD static __attribute__((noinline))
 #endif
 
 namespace libm_f32 {
@@ -85,15 +89,17 @@ LIBM_HD uint32_t abstop12(float x) { return (asuint(x) >> 20) & 0x7ff; }
 #define SC_S2 0x1.1107605230bc4p-7
 #define SC_S3 -0x1.994eb3774cf24p-13
 
-// sinf_poly: sine polynomial for even n, cosine for odd n.
-LIBM_HD float sincos_poly(double x, double x2, int n, int neg_table) {
-  if ((n & 1) == 0) {
-    double x3 = x * x2;
-    double s1 = fma(SC_S3, x2, SC_S2);
-    double x7 = x3 * x2;
-    double s = fma(x3, SC_S1, x);
-    return (float)fma(x7, s1, s);
-  }
+// sinf_poly's two polynomials: the sine of x, and the cosine of x (from
+// x2 = x * x), negated when neg_table (glibc's table[1], used when n & 2).
+LIBM_HD float sin_poly(double x, double x2) {
+  double x3 = x * x2;
+  double s1 = fma(SC_S3, x2, SC_S2);
+  double x7 = x3 * x2;
+  double s = fma(x3, SC_S1, x);
+  return (float)fma(x7, s1, s);
+}
+
+LIBM_HD float cos_poly(double x2, int neg_table) {
   double g = neg_table ? -1.0 : 1.0;
   double x4 = x2 * x2;
   double c2 = fma(g * SC_C4, x2, g * SC_C3);
@@ -101,6 +107,11 @@ LIBM_HD float sincos_poly(double x, double x2, int n, int neg_table) {
   double x6 = x4 * x2;
   double c = fma(x4, g * SC_C2, c1);
   return (float)fma(x6, c2, c);
+}
+
+// sinf_poly: sine polynomial for even n, cosine for odd n.
+LIBM_HD float sincos_poly(double x, double x2, int n, int neg_table) {
+  return (n & 1) == 0 ? sin_poly(x, x2) : cos_poly(x2, neg_table);
 }
 
 // reduce_fast: x - n*pi/2 as one fused negated multiply-add.
@@ -143,7 +154,63 @@ LIBM_HD float cosf(float y) {
   return (float)cos(x);
 }
 
+// Out of the exact domain (|y| >= 120, inf, NaN), kept out of line so that
+// the f64 sin/cos (and their large-argument reduction, with its stack
+// frame) stay out of the hot body.
+LIBM_COLD void sincosf_cold(float y, float* sinp, float* cosp) {
+  *sinp = (float)sin((double)y);
+  *cosp = (float)cos((double)y);
+}
+
+// sinf(y) and cosf(y) as glibc's sincosf computes them: one test of |y|,
+// one reduction, then both polynomials, each output taking the one its
+// quadrant asks for (a select, where sinf and cosf alone branch on n & 1).
+LIBM_HD void sincosf(float y, float* sinp, float* cosp) {
+  double x = y;
+  uint32_t top = abstop12(y);
+  if (top < 0x3f4) {  // |y| < pi/4
+    if (top < 0x398) {  // |y| < 2^-12
+      *sinp = y;
+      *cosp = 1.0f;
+      return;
+    }
+    double x2 = x * x;
+    *sinp = sin_poly(x, x2);
+    *cosp = cos_poly(x2, 0);
+    return;
+  }
+  if (top < 0x42f) {  // |y| < 120
+    int n;
+    x = reduce_fast(x, &n);
+    double s = ((n & 3) == 1 || (n & 3) == 2) ? -1.0 : 1.0;
+    float ps = sin_poly(x * s, x * x), pc = cos_poly(x * x, n & 2);
+    *sinp = (n & 1) ? pc : ps;
+    *cosp = (n & 1) ? ps : pc;
+    return;
+  }
+  sincosf_cold(y, sinp, cosp);
+}
+
 // ------------------------------------------------------------------- tanf
+// glibc's tanf is fdlibm's __kernel_tanf after a reduction. Its branches
+// (|x| <= pi/4 or reduced, |x| >= 0.6744 or not, odd quadrant or even) each
+// take a fraction of any warp's lanes, so a transcription that follows them
+// (two inlined calls of the kernel, two divisions in each) runs the
+// polynomial and the divisions once per branch taken. Here every lane runs
+// one copy of the kernel: a lane with |x| <= pi/4 skips the reduction and
+// enters it as glibc's direct call does, and the two divisions, w*w/(w+v)
+// and -1/w, are one division of selected operands, so a warp runs the
+// polynomial and one division sequence once. Every operation and every
+// rounding is glibc's. The |x| >= 120 fallback is out of line (tanf_cold);
+// the |x| < 2^-13 tail is inlined, its division a second sequence.
+LIBM_HD float tanf_tiny(float x, int iy) {  // |x| < 2^-13
+  if (((asuint(x) & 0x7fffffff) | (uint32_t)(iy + 1)) == 0) return 1.0f / fabsf(x);
+  if (iy == 1) return x;
+  return -1.0f / x;
+}
+
+LIBM_COLD float tanf_cold(float x) { return (float)tan((double)x); }
+
 LIBM_HD float kernel_tanf(float x, float y, int iy) {
   // bit patterns of glibc's .rodata (exact_trig.py _PIO4, _PIO4LO, _T)
   const float pio4 = 0x1.921fb4p-1f;
@@ -158,14 +225,9 @@ LIBM_HD float kernel_tanf(float x, float y, int iy) {
   float z, r, v, w, s;
   int32_t hx = (int32_t)asuint(x);
   int32_t ix = hx & 0x7fffffff;
-  if (ix < 0x39000000) {  // |x| < 2^-13
-    if ((int)x == 0) {
-      if ((ix | (iy + 1)) == 0) return 1.0f / fabsf(x);
-      if (iy == 1) return x;
-      return -1.0f / x;
-    }
-  }
-  if (ix >= 0x3f2ca140) {  // |x| >= 0.6744
+  if (ix < 0x39000000) return tanf_tiny(x, iy);  // |x| < 2^-13: (int)x == 0
+  const bool big = ix >= 0x3f2ca140;  // |x| >= 0.6744: tan(pi/4 - x)
+  if (big) {
     if (hx < 0) {
       x = -x;
       y = -y;
@@ -185,35 +247,35 @@ LIBM_HD float kernel_tanf(float x, float y, int iy) {
   r = y + z * (s * (r + v) + y);
   r += T0 * s;
   w = x + r;
-  if (ix >= 0x3f2ca140) {
-    v = (float)iy;
-    return (float)(1 - ((hx >> 30) & 2)) * (v - 2.0f * (x - (w * w / (w + v) - r)));
-  }
-  if (iy == 1) return w;
+  if (!big && iy == 1) return w;
+  // big: w*w/(w+v) with v = iy; odd quadrant: a = -1/w
+  v = (float)iy;
+  float q = (big ? w * w : -1.0f) / (big ? w + v : w);
+  if (big) return (float)(1 - ((hx >> 30) & 2)) * (v - 2.0f * (x - (q - r)));
   // -1/(x+r) computed accurately from 12-bit-masked high parts
-  float a, t;
+  float a = q, t;
   z = asfloat(asuint(w) & 0xfffff000u);
   v = r - (z - x);
-  t = a = -1.0f / w;
-  t = asfloat(asuint(t) & 0xfffff000u);
+  t = asfloat(asuint(a) & 0xfffff000u);
   s = 1.0f + t * z;
   return t + a * (s + t * v);
 }
 
 LIBM_HD float tanf(float x) {
-  uint32_t ix = asuint(x) & 0x7fffffff;
-  if (ix <= 0x3f490fda) return kernel_tanf(x, 0.0f, 1);
-  if (abstop12(x) < 0x42f) {
+  float y0 = x, y1 = 0.0f;
+  int iy = 1;
+  if ((asuint(x) & 0x7fffffff) > 0x3f490fda) {  // |x| > pi/4: reduce
+    if (abstop12(x) >= 0x42f) return tanf_cold(x);  // |x| >= 120, inf, NaN
     double dx = x;
     double r = dx * SC_HPI_INV;
     int n = (((int32_t)r) + 0x800000) >> 24;
     double nh = (double)n * SC_HPI;  // mulsd: rounds before the subtract
     dx = dx - nh;
-    float y0 = (float)dx;
-    float y1 = (float)(dx - (double)y0);
-    return kernel_tanf(y0, y1, 1 - ((n & 1) << 1));
+    y0 = (float)dx;
+    y1 = (float)(dx - (double)y0);
+    iy = 1 - ((n & 1) << 1);
   }
-  return (float)tan((double)x);
+  return kernel_tanf(y0, y1, iy);
 }
 
 // ------------------------------------------------------------ atanf/atan2f

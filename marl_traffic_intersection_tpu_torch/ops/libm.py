@@ -12,6 +12,12 @@ a pose or a ray direction flips lidar pixels. So the port never calls them:
     (``f32_*`` in the same shim is that transcription built for the CPU, so
     it can be held against glibc without a card).
 
+``sincosf`` gives ``(sinf(x), cosf(x))``: on the card one launch of one
+kernel for the pair (``LAUNCHES["sincosf"]``), bit-equal to the two
+functions. The port always wants both of an angle, so it calls ``sincosf``;
+``sinf`` and ``cosf`` on the card are one ``sincosf`` launch each, the other
+half dropped.
+
 ``sqrtf`` is ``sqrt`` in f64 rounded once to f32, which is the correctly
 rounded f32 square root; f32 ``torch.sqrt`` on the CPU is not correctly
 rounded (AVX-512 dispatch).
@@ -30,19 +36,23 @@ import torch
 
 from . import native
 
-_UNARY = ("sinf", "cosf", "tanf")
-_BINARY = ("atan2f", "hypotf")
+# name: (operands, results); the CUDA side has only CUDA_KERNELS
+ARITY = {"sinf": (1, 1), "cosf": (1, 1), "tanf": (1, 1), "sincosf": (1, 2),
+         "atan2f": (2, 1), "hypotf": (2, 1)}
+CUDA_KERNELS = ("sincosf", "tanf", "atan2f", "hypotf")
+
+
+def _pointers(name: str) -> list:
+    return [ctypes.c_void_p] * sum(ARITY[name])
 
 
 def _host() -> ctypes.CDLL:
     lib = native.load("libm_host.cpp")
     if not getattr(lib, "_typed", False):
-        p, n = ctypes.c_void_p, ctypes.c_long
         for pre in ("glibc_", "f32_"):
-            for name in _UNARY + _BINARY:
+            for name in ARITY:
                 fn = getattr(lib, pre + name)
-                fn.argtypes = [p, p, n] if name in _UNARY else [p, p, p, n]
-                fn.restype = None
+                fn.argtypes, fn.restype = _pointers(name) + [ctypes.c_long], None
         lib._typed = True
     return lib
 
@@ -50,18 +60,15 @@ def _host() -> ctypes.CDLL:
 def _cuda() -> ctypes.CDLL:
     lib = native.load("libm.cu")
     if not getattr(lib, "_typed", False):
-        p, n = ctypes.c_void_p, ctypes.c_long
-        for name in _UNARY:
+        for name in CUDA_KERNELS:
             fn = getattr(lib, "libm_" + name)
-            fn.argtypes, fn.restype = [p, p, n, p], ctypes.c_int
-        for name in _BINARY:
-            fn = getattr(lib, "libm_" + name)
-            fn.argtypes, fn.restype = [p, p, p, n, p], ctypes.c_int
+            fn.argtypes = _pointers(name) + [ctypes.c_long, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
-def _apply(name: str, *xs: torch.Tensor) -> torch.Tensor:
+def _apply(name: str, *xs: torch.Tensor):
     for x in xs:
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: float32 tensors only, got {x.dtype}")
@@ -71,27 +78,31 @@ def _apply(name: str, *xs: torch.Tensor) -> torch.Tensor:
     if any(x.device != dev for x in xs):
         raise ValueError(f"{name}: operands on different devices")
     xs = [x.contiguous() for x in xs]
-    out = torch.empty_like(xs[0])
-    n = out.numel()
+    outs = [torch.empty_like(xs[0]) for _ in range(ARITY[name][1])]
+    args = [*map(native.ptr, xs + outs), outs[0].numel()]
     if dev.type == "cpu":
-        getattr(_host(), "glibc_" + name)(*map(native.ptr, xs), native.ptr(out), n)
-        return out
-    if dev.type != "cuda":
+        getattr(_host(), "glibc_" + name)(*args)
+    elif dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    lib = _cuda()
-    rc = getattr(lib, "libm_" + name)(*map(native.ptr, xs), native.ptr(out), n,
-                                      native.stream_of(out))
-    native.check(rc, lib, name)
-    native.LAUNCHES[name] += 1
-    return out
+    else:
+        lib = _cuda()
+        native.check(getattr(lib, "libm_" + name)(*args, native.stream_of(outs[0])), lib, name)
+        native.LAUNCHES[name] += 1
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def sincosf(x: torch.Tensor) -> tuple:
+    """``(sinf(x), cosf(x))``, bit-equal to the two calls; one launch on the
+    card."""
+    return _apply("sincosf", x)
 
 
 def sinf(x: torch.Tensor) -> torch.Tensor:
-    return _apply("sinf", x)
+    return _apply("sinf", x) if x.device.type == "cpu" else sincosf(x)[0]
 
 
 def cosf(x: torch.Tensor) -> torch.Tensor:
-    return _apply("cosf", x)
+    return _apply("cosf", x) if x.device.type == "cpu" else sincosf(x)[1]
 
 
 def tanf(x: torch.Tensor) -> torch.Tensor:
@@ -141,22 +152,23 @@ def div(a: torch.Tensor, c: float) -> torch.Tensor:
 
 # ---- numpy front ends (host-side table building, tests, chip_smoke) -------
 
-def _np_call(prefix: str, name: str, *arrays) -> np.ndarray:
+def _np_call(prefix: str, name: str, *arrays):
     shape = np.broadcast_shapes(*(np.shape(a) for a in arrays))
     xs = [np.ascontiguousarray(np.broadcast_to(np.asarray(a, np.float32), shape))
           for a in arrays]
-    out = np.empty(shape, np.float32)
+    outs = [np.empty(shape, np.float32) for _ in range(ARITY[name][1])]
     lib = _host()
-    args = [ctypes.c_void_p(a.ctypes.data) for a in xs + [out]]
-    getattr(lib, prefix + name)(*args, out.size)
-    return out
+    args = [ctypes.c_void_p(a.ctypes.data) for a in xs + outs]
+    getattr(lib, prefix + name)(*args, outs[0].size)
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-def glibc_np(name: str, *arrays) -> np.ndarray:
-    """The host glibc's ``name`` (sinf, cosf, tanf, atan2f, hypotf) on numpy."""
+def glibc_np(name: str, *arrays):
+    """The host glibc's ``name`` (sinf, cosf, tanf, sincosf, atan2f, hypotf)
+    on numpy; sincosf gives the pair."""
     return _np_call("glibc_", name, *arrays)
 
 
-def transcribed_np(name: str, *arrays) -> np.ndarray:
+def transcribed_np(name: str, *arrays):
     """libm_f32.cuh's ``name`` built for the CPU, on numpy arrays."""
     return _np_call("f32_", name, *arrays)

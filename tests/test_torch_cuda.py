@@ -42,6 +42,57 @@ def test_libm_kernels_match_the_cpu_transcription(card, name):
     assert (_bits(got) == libm.transcribed_np(name, *args).view(np.int32)).all()
 
 
+def _trig_operand(shape, card):
+    """Seeded uniform(-7, 7) operands of ``shape`` on the card, ending in
+    edge values; "broadcast" is sat_overlap's view of torch.broadcast_tensors,
+    "steering" the angles car_physics_step passes."""
+    rng = np.random.RandomState(1)
+    if shape == "broadcast":
+        a = torch.from_numpy(rng.uniform(-7, 7, (4096, 4, 1)).astype(np.float32)).to(card)
+        b = torch.from_numpy(rng.uniform(-7, 7, (4096, 1, 4)).astype(np.float32)).to(card)
+        return torch.broadcast_tensors(a, b)[0]
+    if shape == "steering":
+        return torch.from_numpy(rng.uniform(-0.6108652, 0.6108652, (4096, 4))
+                                .astype(np.float32)).to(card)
+    x = rng.uniform(-7, 7, int(np.prod(shape))).astype(np.float32)
+    edges = np.asarray([0.0, -0.0, 2.0 ** -12, -(2.0 ** -13), np.pi / 4, -np.pi / 4, 119.99,
+                        -119.99, 1e-40, -1e-45], np.float32)[:x.size]
+    x[len(x) - len(edges):] = edges
+    return torch.from_numpy(x.reshape(shape)).to(card)
+
+
+TRIG_SHAPES = [(0,), (1,), (4096, 4), (4096, 8, 96), "broadcast", "steering"]
+
+
+@pytest.mark.parametrize("shape", TRIG_SHAPES, ids=str)
+def test_sincosf_kernel_matches_the_cpu_transcription(card, shape):
+    x = _trig_operand(shape, card)
+    native.reset_launches()
+    s, c = libm.sincosf(x)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["sincosf"] == 1 and s.shape == c.shape == x.shape
+    ws, wc = libm.transcribed_np("sincosf", x.cpu().numpy())
+    assert (_bits(s) == ws.view(np.int32)).all() and (_bits(c) == wc.view(np.int32)).all()
+    assert torch.equal(libm.sinf(x).view(torch.int32), s.view(torch.int32))
+    assert torch.equal(libm.cosf(x).view(torch.int32), c.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", TRIG_SHAPES, ids=str)
+def test_tanf_kernel_matches_the_cpu_transcription(card, shape):
+    x = _trig_operand(shape, card)
+    got = libm.tanf(x)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape
+    assert (_bits(got) == libm.transcribed_np("tanf", x.cpu().numpy()).view(np.int32)).all()
+
+
+def test_trig_kernels_out_of_domain_give_nan(card):
+    """inf and NaN give NaN (the card's NaN bits are its own)."""
+    x = torch.tensor([np.inf, -np.inf, np.nan], device=card)
+    for got in (*libm.sincosf(x), libm.tanf(x)):
+        assert bool(torch.isnan(got).all())
+
+
 def _env_batch(rng, b, n, m):
     sx = rng.uniform(-250, 1000, (b, n)).astype(np.float32)
     sy = rng.uniform(-250, 1000, (b, n)).astype(np.float32)
