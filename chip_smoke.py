@@ -10,15 +10,23 @@ Phases, one line each; any failure exits nonzero:
               nvcc/g++ in parallel, with ptxas's register and spill lines; with
               --baseline, cuobjdump's count of each libm kernel's SASS
               instructions (calls, local loads and stores, branches, divisions'
-              reciprocals), ours and each baseline's
-  3. libm     the glibc-faithful sincosf/tanf/atan2f/hypotf kernels on 2^22
-              seeded inputs, bit-equal to the same header built for this
-              machine's CPU (decides); against this machine's glibc (shown);
-              device times at (4096, 4) beside torch's call (sin + cos for
-              sincosf), in turns with the same functions of each --baseline
-              build (its sinf + cosf pair where it has no sincosf); the same
-              again after phase 5 on the operands the main path last passed,
-              once for each shape it launched (tanf: the steering angles)
+              reciprocals and checks (FCHK), f32 multiplies, f64 reciprocal
+              square roots), ours and each baseline's
+  3. libm     the glibc-faithful sincosf/tanf/atan2f_diff/hypotf_diff kernels
+              and atan2f/hypotf (which launch the last two) on 2^22 seeded
+              inputs, bit-equal to the same header built for this machine's
+              CPU (decides); against this machine's glibc (shown); device
+              times at (4096, 4)
+              beside torch's call (sin + cos for sincosf; the subtractions and
+              atan2 or hypot for the diff forms), in turns with the same
+              functions of each --baseline build (its sinf + cosf pair where
+              it has no sincosf, torch's subtractions and its atan2f or hypotf
+              where it has no diff form); atan2f_diff and atan2f at (4096, 8)
+              and hypotf_diff at (4096, 8, 160) from an interleaved path, the
+              narrowed traffic shapes, the same way; the same again after
+              phase 5 on the operands the main path last passed, once for each
+              shape it launched (tanf: the steering angles; the strided
+              kernels on the views the path passed)
   4. K1       the lidar kernel against its plain PyTorch version on the card,
               bit-equal, at the main path's 4096x4 shapes, on 36-slot fuzz
               shapes and on NaN/inf/-0.0/screen-edge poses; device times at
@@ -59,7 +67,8 @@ Phases, one line each; any failure exits nonzero:
               device reads per step, the NPC loops' rounds, alive slots per
               env (batch max and mean), peak memory, and every libm kernel
               on the last step's operands, at each shape it launched at,
-              bit-equal to its CPU build; the first two also a
+              bit-equal to its CPU build (the first run also times the diff
+              forms and hypotf on them); the first two also a
               profile (busy share, top kernels) and the device time of the
               NPC update and of its dense plan at the width most steps ran.
               Then 100 steps in the fast NPC mode (with a profile) and 50
@@ -153,8 +162,14 @@ dispatch whenever a launch is shorter than the wrapper's Python call.
 "launch_floor_ms" (libm rows) is the device time of the smallest launch, a
 torch.add of two 1-element tensors; a libm row's "ms" and "library_ms" are
 at (4096, 4) on uniform operands, "baselines" holds the --baseline builds'
-times there, and "main_path" the same times on the operands the main path
-last passed, one entry for each shape it launched. "launches" counts the main
+times there, "main_path" the same times on the operands the main path
+last passed, one entry for each shape it launched, "traffic_shapes" those at
+phase 3's narrowed traffic shapes and "traffic_path" those on the first
+narrowed traffic run's last operands. atan2f and hypotf launch the kernels
+of atan2f_diff and hypotf_diff (on signed-zero operands that make the
+subtractions exact), so their numbers are in those rows, under "atan2f"
+and "hypotf" and as the "function" of a shape's entry, and their launches
+in those rows' counts. "launches" counts the main
 phase's launches, "launches_train" those of the train phase's 3 updates,
 "launches_traffic" those of the traffic phase's 200 narrowed exact steps,
 "launches_eval_config4" those of 200 config-4 evaluate steps with the GRU
@@ -248,8 +263,8 @@ def device_ms(fn, reps, match=None, tries=5, per_call=1):
     return us / 1e3 / launches * per_call
 
 
-SASS_OPS = ("CALL", "LDL", "STL", "BRA", "BSSY", "MUFU.RCP", "DFMA", "DMUL", "DADD", "F2F",
-            "F2I", "I2F")
+SASS_OPS = ("CALL", "LDL", "STL", "BRA", "BSSY", "MUFU.RCP", "MUFU.RSQ64H", "FCHK", "FMUL",
+            "DFMA", "DMUL", "DADD", "F2F", "F2I", "I2F")
 
 
 def sass_counts(so) -> dict:
@@ -284,29 +299,65 @@ def sin_cos(t):
     return torch.sin(t), torch.cos(t)
 
 
-# libm kernel: bytes moved and f64 operations per element, torch's call for
-# the same function (not glibc-exact) and its launches, the function of the
-# JAX package it replaces, the kernel's name in libm.cu
-LibmSpec = collections.namedtuple("LibmSpec", "bytes ops lib_fn lib_launches replaces key")
+def atan2_diff(ay, by, ax, bx):
+    return torch.atan2(-(ay - by), ax - bx)
+
+
+def hypot_diff(ax, bx, ay, by):
+    return torch.hypot(ax - bx, ay - by)
+
+
+# libm function: operations per element (f64, and the diff forms' f32
+# subtractions), torch's call for the same function (not glibc-exact) and its
+# launches, the function of the JAX package it replaces, the functor's name
+# in the mangled names of its kernel in libm.cu (every instantiation of a
+# strided one; atan2f and hypotf launch the diff kernels)
+LibmSpec = collections.namedtuple("LibmSpec", "ops lib_fn lib_launches replaces key")
 LIBM = {
-    "sincosf": LibmSpec(12, 28, sin_cos, 2,
+    "sincosf": LibmSpec(28, sin_cos, 2,
                         "marl_traffic_intersection_tpu/ops/exact_trig.py:145, :162",
                         "sincosf_kernel"),
-    "tanf": LibmSpec(8, 40, torch.tan, 1, "marl_traffic_intersection_tpu/ops/exact_trig.py:299",
+    "tanf": LibmSpec(40, torch.tan, 1, "marl_traffic_intersection_tpu/ops/exact_trig.py:299",
                      "TanF"),
-    "atan2f": LibmSpec(12, 40, torch.atan2, 1,
-                       "marl_traffic_intersection_tpu/ops/exact_libm.py:279", "Atan2F"),
-    "hypotf": LibmSpec(12, 6, torch.hypot, 1,
-                       "marl_traffic_intersection_tpu/ops/exact_libm.py:188", "HypotF"),
+    "atan2f": LibmSpec(40, torch.atan2, 1,
+                       "marl_traffic_intersection_tpu/ops/exact_libm.py:279", "10Atan2FDiffE"),
+    "hypotf": LibmSpec(6, torch.hypot, 1,
+                       "marl_traffic_intersection_tpu/ops/exact_libm.py:188", "10HypotFDiffE"),
+    "atan2f_diff": LibmSpec(42, atan2_diff, 4,
+                            "marl_traffic_intersection_tpu/ops/exact_libm.py:279",
+                            "10Atan2FDiffE"),
+    "hypotf_diff": LibmSpec(8, hypot_diff, 3,
+                            "marl_traffic_intersection_tpu/ops/exact_libm.py:188",
+                            "10HypotFDiffE"),
 }
+# the --baseline builds of libm.cu: directory -> baseline_libm's functions
+LIBM_BASES: dict = {}
+def stored(t) -> int:
+    """The elements a view reads: its size over the dimensions it is not
+    broadcast along."""
+    return int(np.prod([n for n, st in zip(t.shape, t.stride()) if st != 0]))
+
 
 def baseline_libm(so) -> dict:
     """The functions of another build of libm.cu (``so``): name -> (a call on
-    contiguous float32 tensors on the card, its launches). Where it has no
-    sincosf, its sinf and cosf stand for it, two launches."""
+    float32 tensors on the card, launches per call given its operands).
+    A build with the diff forms is launched as ours is (ops/libm.launch).
+    An older one takes contiguous operands of one shape, so each operand
+    that is not is copied first (a launch, as that build's wrapper did); its
+    sinf and cosf stand for a missing sincosf, and the torch subtractions
+    and its atan2f or hypotf for a missing diff form."""
     from marl_traffic_intersection_tpu_torch.ops import libm, native
 
     lib = ctypes.CDLL(str(so))
+    if hasattr(lib, "libm_hypotf_diff"):
+        libm.type_cuda(lib)
+
+        def launched(name):
+            def call(*xs):
+                outs = libm.launch(lib, name, xs)
+                return outs[0] if len(outs) == 1 else tuple(outs)
+            return call, lambda *xs: 1
+        return {name: launched(name) for name in (*libm.CUDA_KERNELS, *libm.KERNEL_OF)}
     fns = {}
     for name, (nin, nout) in libm.ARITY.items():
         f = getattr(lib, "libm_" + name, None)
@@ -316,22 +367,30 @@ def baseline_libm(so) -> dict:
         f.restype = ctypes.c_int
 
         def call(*xs, f=f, nout=nout, name=name):
+            xs = [t.contiguous() for t in torch.broadcast_tensors(*xs)]
             outs = [torch.empty_like(xs[0]) for _ in range(nout)]
             rc = f(*map(native.ptr, (*xs, *outs)), outs[0].numel(), native.stream_of(outs[0]))
             native.check(rc, lib, f"baseline {name}")
             return outs[0] if nout == 1 else tuple(outs)
-        fns[name] = (call, 1)
+        fns[name] = (call, lambda *xs: 1 + sum(not t.is_contiguous()
+                                               for t in torch.broadcast_tensors(*xs)))
     if "sincosf" not in fns and {"sinf", "cosf"} <= set(fns):
-        fns["sincosf"] = (lambda t: (fns["sinf"][0](t), fns["cosf"][0](t)), 2)
+        fns["sincosf"] = (lambda t: (fns["sinf"][0](t), fns["cosf"][0](t)), lambda t: 2)
+    for name, (base, form) in libm.DIFF.items():
+        if name not in fns and base in fns:
+            # the subtractions (and atan2f's negation) give contiguous operands
+            fns[name] = (lambda *xs, f=fns[base][0], form=form: f(*form(*xs)),
+                         lambda *xs, name=name: LIBM[name].lib_launches)
     return fns
 
 
 def libm_times(name, args, bases) -> dict:
-    """libm kernel ``name`` on ``args`` (contiguous float32 tensors on the
-    card) in turns (a, b, c, c, b, a) with torch's call and with the same
-    function of each baseline build (``bases``: directory -> baseline_libm's
-    functions, each first held bit for bit against ours): device ms per call,
-    each the mean of two turns, and the bound for these operands."""
+    """libm kernel ``name`` on ``args`` (float32 tensors on the card, views
+    as a path passes them) in turns (a, b, c, c, b, a) with torch's call and
+    with the same function of each baseline build (``bases``: directory ->
+    baseline_libm's functions, each first held bit for bit against ours):
+    device ms per call, each the mean of two turns, and the bound for these
+    operands (each element a view reads, read once; the outputs written)."""
     from marl_traffic_intersection_tpu_torch.ops import libm
 
     spec = LIBM[name]
@@ -344,14 +403,15 @@ def libm_times(name, args, bases) -> dict:
             fn, k = fns[name]
             if not all(bits_equal(a, b) for a, b in zip(outputs(fn(*args)), want)):
                 raise RuntimeError(f"the baseline {d}'s {name} differs from libm.cu's")
-            variants[d] = (lambda fn=fn: fn(*args), k)
+            variants[d] = (lambda fn=fn: fn(*args), k(*args))
     times = {v: [] for v in variants}
     for v in list(variants) + list(variants)[::-1]:
         fn, k = variants[v]
         times[v].append(device_ms(fn, 200, per_call=k))
     ms = {v: sum(t) / len(t) for v, t in times.items()}
-    n = args[0].numel()
-    by_bytes, by_ops = n * spec.bytes / HBM_BYTES_PER_S, n * spec.ops / F64_OPS_PER_S
+    n = want[0].numel()
+    nbytes = 4 * (sum(stored(a) for a in args) + n * len(want))
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, n * spec.ops / F64_OPS_PER_S
     out = dict(ms=ms["libm.cu"], library_ms=ms["torch"], bound_ms=1e3 * max(by_bytes, by_ops),
                bound_by="bytes" if by_bytes >= by_ops else "operations")
     base = {v: dict(ms=t, launches_per_call=variants[v][1]) for v, t in ms.items()
@@ -387,12 +447,14 @@ def ptxas_info(log):
 
 
 def kernel_regs(info, key):
-    """The ptxas numbers of the one entry whose mangled name contains ``key``."""
+    """The ptxas numbers of the entries whose mangled names contain ``key``
+    (a strided libm kernel has one per dimension count): the largest of
+    each."""
     hits = [v for k, v in info.items() if key in k and "registers" in v]
-    if len(hits) != 1:
-        raise RuntimeError(f"ptxas output: {len(hits)} entries match {key!r}")
-    return {k: hits[0].get(k) for k in ("registers", "stack_bytes", "spill_stores",
-                                        "spill_loads")}
+    if not hits:
+        raise RuntimeError(f"ptxas output: no entry matches {key!r}")
+    return {k: max((h.get(k) or 0) for h in hits)
+            for k in ("registers", "stack_bytes", "spill_stores", "spill_loads")}
 
 
 def host_ms(fn, reps):
@@ -444,7 +506,7 @@ def main() -> int:
 
     # other lidar.cu and libm.cu files, built beside ours with the same flags
     baselines = {d: start_baseline("lidar.cu", j, d) for j, d in enumerate(opts.baseline)}
-    libm_bases = {d: start_baseline("libm.cu", j, d) for j, d in enumerate(opts.baseline)}
+    libm_built = {d: start_baseline("libm.cu", j, d) for j, d in enumerate(opts.baseline)}
     sources = ["libm.cu", "lidar.cu", "libm_host.cpp"]
     started = [(s, native.start_build(s)) for s in sources]
     for s, st in started:
@@ -466,13 +528,13 @@ def main() -> int:
     if opts.baseline:
         sass = sass_counts(native.library_path("libm.cu"))
         phase("build", f"libm.cu SASS by kernel: {sass or 'cuobjdump gave nothing'}")
-    for d, (so, proc) in libm_bases.items():
+    for d, (so, proc) in libm_built.items():
         log = proc.communicate()[0]
         if proc.returncode:
             phase("build", f"FAIL: the baseline {d}/libm.cu:\n{log}")
             return 1
-        libm_bases[d] = baseline_libm(so)
-        phase("build", f"baseline {d}/libm.cu: {sorted(libm_bases[d])}; "
+        LIBM_BASES[d] = baseline_libm(so)
+        phase("build", f"baseline {d}/libm.cu: {sorted(LIBM_BASES[d])}; "
                        f"ptxas {ptxas_info(log)}; SASS by kernel {sass_counts(so)}")
     phase("build", f"all built in {time.perf_counter() - t0:.1f} s")
 
@@ -493,7 +555,16 @@ def main() -> int:
                        -2 * np.pi, np.pi / 4], np.float32)
     x = np.concatenate([rng.uniform(-7, 7, 1 << 22).astype(np.float32), axis])
     y = np.concatenate([rng.uniform(-7, 7, 1 << 22).astype(np.float32), axis[::-1]])
-    uniform = {"sincosf": (x,), "tanf": (x,), "atan2f": (y, x), "hypotf": (x * 100, y * 100)}
+    # screen coordinates for the diff forms (a pose and a point of each axis),
+    # some pairs equal: the signed zero of -(a - a)
+    scr = rng.uniform(-100, 1100, (4, x.size)).astype(np.float32)
+    scr[1, ::4], scr[3, 1::3] = scr[0, ::4], scr[2, 1::3]
+    # each kernel's row before the functions that launch it
+    uniform = {"sincosf": (x,), "tanf": (x,), "atan2f_diff": tuple(scr),
+               "hypotf_diff": tuple(scr), "atan2f": (y, x), "hypotf": (x * 100, y * 100)}
+    drawn = {"sincosf": "uniform(-7, 7)", "tanf": "uniform(-7, 7)", "atan2f": "uniform(-7, 7)",
+             "hypotf": "uniform(-700, 700)", "atan2f_diff": "uniform(-100, 1100)",
+             "hypotf_diff": "uniform(-100, 1100)"}
     glibc = os.confstr("CS_GNU_LIBC_VERSION")
     one = torch.ones(1, device=dev)
     floor_ms = device_ms(lambda: torch.add(one, one), 200)
@@ -517,21 +588,50 @@ def main() -> int:
         small = [torch.from_numpy(a[:bshape[0] * bshape[1]].reshape(bshape)).to(dev)
                  for a in args]
         small_cpu = [t.cpu() for t in small]
-        kernels[name] = dict(
-            name=name, route="cuda", source=SRC + "libm.cu", replaces=LIBM[name].replaces,
-            max_abs_err=max(float(np.abs(g.cpu().numpy().astype(np.float64) - w).max())
-                            for g, w in zip(got, want)),
-            event_ms=cuda_ms(lambda: fn(*small), 200),
-            plain_ms=host_ms(lambda: fn(*small_cpu), 20),
-            launch_floor_ms=floor_ms, **kernel_regs(ptxas, key))
-        times = libm_times(name, small, libm_bases)
-        kernels[name].update(times)
-        k = kernels[name]
+        row = dict(max_abs_err=max(float(np.abs(g.cpu().numpy().astype(np.float64) - w).max())
+                                   for g, w in zip(got, want)),
+                   event_ms=cuda_ms(lambda: fn(*small), 200),
+                   plain_ms=host_ms(lambda: fn(*small_cpu), 20))
+        times = libm_times(name, small, LIBM_BASES)
+        row.update(times)
+        kernel = libm.KERNEL_OF.get(name, name)
+        if kernel == name:
+            kernels[name] = dict(name=name, route="cuda", source=SRC + "libm.cu",
+                                 replaces=LIBM[name].replaces, **row,
+                                 launch_floor_ms=floor_ms, **kernel_regs(ptxas, key))
+        else:       # a function this kernel launches: its numbers in the row
+            kernels[kernel][name] = row
+        k = kernels[kernel]
         phase("libm", f"{name}: bit-equal to the CPU build on {got[0].numel()} inputs; "
                       f"{n_glibc} results differ from this machine's {glibc} (shown only); at "
-                      f"{bshape}, uniform(-7, 7): {per_variant(times)}; events, with the host: "
-                      f"{k['event_ms']:.4f} ms; torch's call is not glibc-exact; "
-                      f"{k['registers']} registers, {k['stack_bytes']} B stack; card {card}")
+                      f"{bshape}, {drawn[name]}: {per_variant(times)}; bound "
+                      f"{times['bound_ms']:.7f} ms; events, with the host: "
+                      f"{row['event_ms']:.4f} ms; torch's call is not glibc-exact; "
+                      f"{kernel}'s {k['registers']} registers, {k['stack_bytes']} B stack; "
+                      f"card {card}")
+
+    # the narrowed traffic shapes (w = 8 NPC slots): the plan's heading error
+    # toward its lookahead point, (4096, 8), and its distances from each
+    # planner to every point of its path, (4096, 8, 160), read in place from
+    # an interleaved (4096, 8, 160, 2) path (a build without the diff forms
+    # subtracts first)
+    pose = torch.from_numpy(rng.uniform(-100, 1100, (4, 4096, 8)).astype(np.float32)).to(dev)
+    path = torch.from_numpy(rng.uniform(-100, 1100, (4096, 8, 160, 2)).astype(np.float32)).to(dev)
+    for name, args in (("atan2f_diff", tuple(pose)),
+                       ("atan2f", (-(pose[0] - pose[1]), pose[2] - pose[3])),
+                       ("hypotf_diff", (path[..., 0], pose[0, ..., None], path[..., 1],
+                                        pose[1, ..., None]))):
+        got, want = getattr(libm, name)(*args), getattr(libm, name)(*(a.cpu() for a in args))
+        if not bits_equal(got, want):
+            phase("libm", f"FAIL {name}: differs from its CPU build at {tuple(got.shape)}")
+            return 1
+        times = libm_times(name, list(args), LIBM_BASES)
+        kernels[libm.KERNEL_OF.get(name, name)].setdefault("traffic_shapes", []).append(
+            dict(function=name, shape=list(got.shape), **times))
+        phase("libm", f"{name} at the narrowed traffic shape {tuple(got.shape)}: bit-equal "
+                      f"to the CPU build; device ms per call {per_variant(times)}; bound "
+                      f"{times['bound_ms']:.7f} ms ({times['bound_by']}); card {card}")
+    del pose, path
 
     # ---- 4. K1
     def on_card(arrays):
@@ -672,13 +772,7 @@ def main() -> int:
                   f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}; "
                   f"the kernels on the last step's operands bit-equal to their plain versions: "
                   f"{held}; card {card}")
-    # each libm kernel on the operands the main path last passed it, per shape
-    for (name, shape), xs in sorted(rec.libm.items()):
-        args = [t.contiguous() for t in torch.broadcast_tensors(*xs)]
-        times = libm_times(name, args, libm_bases)
-        kernels[name].setdefault("main_path", []).append(dict(shape=list(shape), **times))
-        phase("libm", f"{name} on the main path's last operands at {shape}: "
-                      f"device ms per call {per_variant(times)}; card {card}")
+    time_recorded(rec, kernels, "main_path", tuple(LIBM), card)
     zeros = torch.zeros((4096, 4, 2), device=dev)
     prof = profile_steps(lambda: venv.step(state, zeros)[1].obs.sum(), 10)
     phase("main", f"profile of 10 steps, zero actions (as the bench): "
@@ -949,10 +1043,10 @@ def k1_counted():
 def held_to_plain(rec, kernels) -> tuple:
     """K1 (if in ``kernels``) on the last arguments ``k1_counted`` kept at each
     obstacle count M, and every libm kernel of ``kernels`` on its last
-    operands at each shape it launched at (both outputs of sincosf), against
-    their plain versions (``lidar_scan_ref``; the same
-    wrapper on the CPU, the host glibc), bit for bit: (the shapes held, the
-    failures)."""
+    operands at each shape it launched at (both outputs of sincosf; atan2f
+    and hypotf, which launch the diff kernels, as called), against their
+    plain versions (``lidar_scan_ref``; the same wrapper on the CPU, the host
+    glibc), bit for bit: (the shapes held, the failures)."""
     from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
     from marl_traffic_intersection_tpu_torch.ops import libm, lidar_cuda
 
@@ -967,11 +1061,11 @@ def held_to_plain(rec, kernels) -> tuple:
             bad.append(f"lidar_scan differs from lidar_scan_ref on "
                        f"{int((got.cpu().view(torch.int32) != ref.cpu().view(torch.int32)).sum())}"
                        f" rays at {held[-1]}")
-    launched = {name for name, _ in rec.libm}
+    launched = {libm.KERNEL_OF.get(name, name) for name, _ in rec.libm}
     bad += [f"{name} never launched" for name in kernels
             if name != "lidar_scan" and name not in launched]
     for (name, shape), xs in sorted(rec.libm.items()):
-        if name not in kernels:
+        if libm.KERNEL_OF.get(name, name) not in kernels:
             continue
         fn = getattr(libm, name)
         got, want = outputs(fn(*xs)), outputs(fn(*(x.cpu() for x in xs)))
@@ -984,10 +1078,34 @@ def held_to_plain(rec, kernels) -> tuple:
     return held, bad
 
 
+def time_recorded(rec, kernels, key, names, card) -> None:
+    """Each libm function of ``names`` timed (libm_times, against LIBM_BASES)
+    on the last operands ``rec`` kept at each shape it launched at, those of
+    the strided kernels on the views as they were passed, the others made
+    contiguous; the times appended to its kernel's ``kernels[kernel][key]``."""
+    from marl_traffic_intersection_tpu_torch.ops import libm
+
+    for (name, shape), xs in sorted(rec.libm.items()):
+        if name not in names:
+            continue
+        kernel = libm.KERNEL_OF.get(name, name)
+        args = (list(xs) if kernel in libm.DIFF
+                else [t.contiguous() for t in torch.broadcast_tensors(*xs)])
+        times = libm_times(name, args, LIBM_BASES)
+        kernels[kernel].setdefault(key, []).append(dict(function=name, shape=list(shape),
+                                                        **times))
+        phase("libm", f"{name} on the {key.replace('_', ' ')}'s last operands at {shape}: "
+                      f"device ms per call {per_variant(times)}; bound {times['bound_ms']:.7f} "
+                      f"ms ({times['bound_by']}); card {card}")
+
+
 def held_seen(rec, kernels) -> tuple:
     """``held_to_plain`` for the kernels of ``kernels`` that ``rec`` saw
     launched."""
-    seen = {name for name, _ in rec.libm} | ({"lidar_scan"} if rec.args_by_m else set())
+    from marl_traffic_intersection_tpu_torch.ops import libm
+
+    seen = ({libm.KERNEL_OF.get(name, name) for name, _ in rec.libm}
+            | ({"lidar_scan"} if rec.args_by_m else set()))
     return held_to_plain(rec, {k: v for k, v in kernels.items() if k in seen})
 
 
@@ -1073,11 +1191,14 @@ def npc_breakdown(env, state, width) -> dict:
     return out
 
 
-def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, **cfg) -> dict:
+def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, time_libm=False,
+                **cfg) -> dict:
     """``steps`` steps of config 4 at TRAFFIC_B x TRAFFIC_N with ``model`` in
     the loop, spawns drawn on the card (VectorEnv seed 2, so every run of the
     same ``cfg`` sees the same resets, spawns and actions), after ``warmup``
-    steps: its phase line, and a dict of what it read (None on failure)."""
+    steps: its phase line, and a dict of what it read (None on failure).
+    With ``time_libm``, the diff forms and hypotf are timed on the last
+    operands of each shape they launched at."""
     from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
     from marl_traffic_intersection_tpu_torch.ops import native
     from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
@@ -1125,6 +1246,9 @@ def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, **cf
     if bad:
         phase("traffic", f"FAIL {label}: {bad}")
         return None
+    if time_libm:
+        time_recorded(k1, kernels, "traffic_path", ("atan2f_diff", "hypotf_diff", "hypotf"),
+                      card)
     widths = {k: v for k, v in stats.items() if "_width_" in k}
     prof, top, breakdown = None, None, None
     if profile:
@@ -1177,7 +1301,8 @@ def traffic_phase(dev, card, kernels) -> int:
     for turn, tier in enumerate((-1, 0, 0, -1)):
         label = f"exact {'narrowed (npc_tier=-1)' if tier else 'full width (npc_tier=0)'}"
         r = traffic_run(dev, card, kernels, model, f"{label}, turn {turn + 1}",
-                        STEPS if turn < 2 else PAIR2, profile=turn < 2, npc_tier=tier)
+                        STEPS if turn < 2 else PAIR2, profile=turn < 2, time_libm=turn == 0,
+                        npc_tier=tier)
         if r is None:
             return 1
         runs.append(r)

@@ -267,7 +267,7 @@ class IntersectionEnv:
         pi = torch.where(alive, pi, ego.path_index)
 
         goal = _pick(self.goal_xy, ego.route_id)                  # (B, N, 2)
-        cur_dist = libm.hypotf(x - goal[..., 0], y - goal[..., 1])
+        cur_dist = libm.hypotf_diff(x, goal[..., 0], y, goal[..., 1])
         r_prog = torch.where(ego.prev_dist_to_goal > 0.0,
                              libm.div(ego.prev_dist_to_goal - cur_dist, self.max_progress)
                              * rw.k_prog, 0.0)
@@ -427,7 +427,9 @@ class IntersectionEnv:
         dxd = txy[..., 0] - x
         dyd = txy[..., 1] - y
         d_dst = div(dist2(dxd, dyd), WIDTH)
-        theta_err = div(wrap_angle(libm.atan2f(-dyd, dxd) - heading), _PI32)
+        # atan2f(-dyd, dxd), the differences taken in the launch
+        theta_err = div(wrap_angle(libm.atan2f_diff(txy[..., 1], y, txy[..., 0], x) - heading),
+                        _PI32)
 
         # neighbour pool: the other egos (then the NPC slots), padded to
         # NEIGHBOR_COUNT slots

@@ -140,7 +140,7 @@ def _plan(sx, sy, sv, sh, su, others, pi0, path, pool):
     tgt = torch.clamp(pi0 + 12, max=PATH_LEN - 1).long()[..., None]
     tx = path[..., 0].gather(-1, tgt)[..., 0]
     ty = path[..., 1].gather(-1, tgt)[..., 0]
-    heading_err = wrap_angle(libm.atan2f(-(ty - sy), tx - sx) - sh)
+    heading_err = wrap_angle(libm.atan2f_diff(ty, sy, tx, sx) - sh)
     steer_cmd = torch.clamp(heading_err * 3.0, -1.0, 1.0)
 
     # 2) longitudinal: cruise plus front-car braking (TrafficFlow.cpp:66-75)
@@ -191,9 +191,10 @@ def _plan(sx, sy, sv, sh, su, others, pi0, path, pool):
     skip_parallel = (dist > _EPS) & is_parallel & sideways & not_far & (fmag > _EPS) & stable
 
     # yield rules (TrafficFlow.cpp:162-177): should_yield(k, o) = rule1(k) | rules234(o)
-    my_dc = libm.hypotf(sx - _CX, sy - _CY)[..., None]  # (B, S, 1)
-    other_dc = libm.hypotf(x - _CX, y - _CY)[:, None, :]  # (B, 1, M)
-    dtc = libm.hypotf(gx - sx[..., None], gy - sy[..., None])   # (B, S, P)
+    cx, cy = libm.const(_CX, dev), libm.const(_CY, dev)
+    my_dc = libm.hypotf_diff(sx, cx, sy, cy)[..., None]         # (B, S, 1)
+    other_dc = libm.hypotf_diff(x, cx, y, cy)[:, None, :]       # (B, 1, M)
+    dtc = libm.hypotf_diff(gx, sx[..., None], gy, sy[..., None])  # (B, S, P)
     rule1 = dtc < 15.0
     rule2 = (sv < 1.0)[..., None] & (v > 3.0)[:, None, :] & (other_dc < my_dc + 25.0)
     rule3 = other_dc < my_dc - 5.0
@@ -446,7 +447,7 @@ def npc_despawn(npc: NpcState, goal_xy) -> NpcState:
     """Remove NPCs within 20 px of their goal or 100 px off the screen
     (TrafficFlow.cpp:358-366). goal_xy: (R, 2)."""
     g = goal_xy[npc.route_id.long()]
-    arrived = libm.hypotf(npc.x - g[..., 0], npc.y - g[..., 1]) < 20.0
+    arrived = libm.hypotf_diff(npc.x, g[..., 0], npc.y, g[..., 1]) < 20.0
     oos = ((npc.x < -100.0) | (npc.x > WIDTH + 100.0)
            | (npc.y < -100.0) | (npc.y > HEIGHT + 100.0))
     return npc._replace(alive=npc.alive & ~arrived & ~oos)

@@ -279,69 +279,59 @@ LIBM_HD float tanf(float x) {
 }
 
 // ------------------------------------------------------------ atanf/atan2f
+// glibc's atanf (fdlibm) reduces its argument in one of five ranges, four of
+// them by a division: (2x-1)/(2+x), (x-1)/(x+1), (x-1.5)/(1+1.5x), -1/x.
+// Branching on the range, a warp of mixed operands runs one IEEE division
+// sequence (MUFU.RCP, Newton, FCHK and a CALL to its slow path) for each
+// range its lanes take. Here every lane forms its range's numerator and
+// denominator by selects and divides once (|x| < 0.4375 divides x by 1,
+// which is exact), and the range's atanhi/atanlo and the |x| >= 2^25, NaN
+// and |x| < 2^-29 results are selects too: one division sequence and one
+// polynomial per warp. Each operand is formed as glibc forms it, so every
+// operation and rounding is glibc's.
 LIBM_HD float atanf(float x) {
-  const float atanhi[4] = {asfloat(0x3eed6338u), asfloat(0x3f490fdau),
-                           asfloat(0x3f7b985eu), asfloat(0x3fc90fdau)};
-  const float atanlo[4] = {asfloat(0x31ac3769u), asfloat(0x33222168u),
-                           asfloat(0x33140fb4u), asfloat(0x33a22168u)};
   const float aT0 = asfloat(0x3eaaaaabu), aT1 = asfloat(0xbe4ccccdu),
               aT2 = asfloat(0x3e124925u), aT3 = asfloat(0xbde38e38u),
               aT4 = asfloat(0x3dba2e6eu), aT5 = asfloat(0xbd9d8795u),
               aT6 = asfloat(0x3d886b35u), aT7 = asfloat(0xbd6ef16bu),
               aT8 = asfloat(0x3d4bda59u), aT9 = asfloat(0xbd15a221u),
               aT10 = asfloat(0x3c8569d7u);
-  float w, s1, s2, z;
-  int32_t hx = (int32_t)asuint(x);
-  int32_t ix = hx & 0x7fffffff;
-  int id;
-  if (ix >= 0x4c000000) {  // |x| >= 2^25
-    if (ix > 0x7f800000) return x + x;
-    if (hx > 0) return atanhi[3] + atanlo[3];
-    return -atanhi[3] - atanlo[3];
-  }
-  if (ix < 0x3ee00000) {  // |x| < 0.4375
-    if (ix < 0x31000000) return x;  // |x| < 2^-29
-    id = -1;
-  } else {
-    x = fabsf(x);
-    if (ix < 0x3f980000) {
-      if (ix < 0x3f300000) {
-        id = 0;
-        x = (2.0f * x - 1.0f) / (2.0f + x);
-      } else {
-        id = 1;
-        x = (x - 1.0f) / (x + 1.0f);
-      }
-    } else {
-      if (ix < 0x401c0000) {
-        id = 2;
-        x = (x - 1.5f) / (1.0f + 1.5f * x);
-      } else {
-        id = 3;
-        x = -1.0f / x;
-      }
-    }
-  }
-  z = x * x;
-  w = z * z;
-  s1 = z * (aT0 + w * (aT2 + w * (aT4 + w * (aT6 + w * (aT8 + w * aT10)))));
-  s2 = w * (aT1 + w * (aT3 + w * (aT5 + w * (aT7 + w * aT9))));
-  if (id < 0) return x - x * (s1 + s2);
-  z = atanhi[id] - ((x * (s1 + s2) - atanlo[id]) - x);
-  return (hx < 0) ? -z : z;
+  const float hi3 = asfloat(0x3fc90fdau), lo3 = asfloat(0x33a22168u);
+  const int32_t hx = (int32_t)asuint(x);
+  const int32_t ix = hx & 0x7fffffff;
+  const float ax = fabsf(x);
+  // the range: id -1 (no reduction), then id 0, 1, 2; else id 3
+  const bool r_1 = ix < 0x3ee00000, r0 = ix < 0x3f300000, r1 = ix < 0x3f980000,
+             r2 = ix < 0x401c0000;
+  const float num = r_1 ? x : r0 ? 2.0f * ax - 1.0f : r1 ? ax - 1.0f : r2 ? ax - 1.5f : -1.0f;
+  const float den = r_1 ? 1.0f : r0 ? 2.0f + ax : r1 ? ax + 1.0f : r2 ? 1.0f + 1.5f * ax : ax;
+  const float hi = r0 ? asfloat(0x3eed6338u) : r1 ? asfloat(0x3f490fdau)
+                 : r2 ? asfloat(0x3f7b985eu) : hi3;
+  const float lo = r0 ? asfloat(0x31ac3769u) : r1 ? asfloat(0x33222168u)
+                 : r2 ? asfloat(0x33140fb4u) : lo3;
+  const float t = num / den;
+  const float z = t * t;
+  const float w = z * z;
+  const float s1 = z * (aT0 + w * (aT2 + w * (aT4 + w * (aT6 + w * (aT8 + w * aT10)))));
+  const float s2 = w * (aT1 + w * (aT3 + w * (aT5 + w * (aT7 + w * aT9))));
+  const float p = t * (s1 + s2);
+  const float reduced = hi - ((p - lo) - t);
+  float res = r_1 ? t - p : (hx < 0 ? -reduced : reduced);
+  if (ix >= 0x4c000000)  // |x| >= 2^25 or NaN: a select, no branch
+    res = ix > 0x7f800000 ? x + x : (hx > 0 ? hi3 + lo3 : -hi3 - lo3);
+  return ix < 0x31000000 ? x : res;  // |x| < 2^-29
 }
 
-LIBM_HD float atan2f(float y, float x) {
+// atan2f's zero, infinite and NaN operands (glibc's cases in its order),
+// out of line: a warp of finite, nonzero operands never enters it.
+LIBM_COLD float atan2f_special(float y, float x) {
   const float tiny = 1.0e-30f;
   const float pi_o_4 = asfloat(0x3f490fdbu);
   const float pi_o_2 = asfloat(0x3fc90fdbu);
   const float pi = asfloat(0x40490fdbu);
-  const float pi_lo = asfloat(0xb3bbbd2eu);
-  float z;
   int32_t hx = (int32_t)asuint(x), hy = (int32_t)asuint(y);
   int32_t ix = hx & 0x7fffffff, iy = hy & 0x7fffffff;
   if (ix > 0x7f800000 || iy > 0x7f800000) return x + y;
-  if (hx == 0x3f800000) return atanf(y);
   int m = ((hy >> 31) & 1) | ((hx >> 30) & 2);
   if (iy == 0) {
     switch (m) {
@@ -379,34 +369,115 @@ LIBM_HD float atan2f(float y, float x) {
         return -pi - tiny;
     }
   }
-  if (iy == 0x7f800000) return (hy < 0) ? -pi_o_2 - tiny : pi_o_2 + tiny;
-  int32_t k = (iy - ix) >> 23;
-  if (k > 60)
-    z = pi_o_2 + 0.5f * pi_lo;
-  else if (hx < 0 && k < -60)
-    z = 0.0f;
-  else
-    z = atanf(fabsf(y / x));
-  switch (m) {
-    case 0:
-      return z;
-    case 1:
-      return asfloat(asuint(z) ^ 0x80000000u);
-    case 2:
-      return pi - (z - pi_lo);
-    default:
-      return (z - pi_lo) - pi;
-  }
+  return (hy < 0) ? -pi_o_2 - tiny : pi_o_2 + tiny;  // y infinite
+}
+
+// glibc's atan2f (fdlibm). Its x == 1.0f shortcut, atanf(y), is not taken:
+// the generic path gives the same bits there (y / 1.0f is y, atanf is odd,
+// the k > 60 constant rounds to atanf's 0x3fc90fdb for |y| >= 2^25, and the
+// zero and infinite cases agree; held against glibc on the host), so every
+// lane runs one atanf and, with y / x, two division sequences. The rare
+// operands go out of line behind one test, and the quadrant fix-up and the
+// |y/x| > 2^60 and x < 0, |y/x| < 2^-60 clamps are selects.
+LIBM_HD float atan2f(float y, float x) {
+  const float pi_o_2 = asfloat(0x3fc90fdbu);
+  const float pi = asfloat(0x40490fdbu);
+  const float pi_lo = asfloat(0xb3bbbd2eu);
+  const int32_t hx = (int32_t)asuint(x), hy = (int32_t)asuint(y);
+  const int32_t ix = hx & 0x7fffffff, iy = hy & 0x7fffffff;
+  // finite and nonzero: 1 <= ix, iy <= 0x7f7fffff
+  if ((uint32_t)(ix - 1) >= 0x7f7fffffu || (uint32_t)(iy - 1) >= 0x7f7fffffu)
+    return atan2f_special(y, x);
+  const int32_t k = (iy - ix) >> 23;
+  float z = atanf(fabsf(y / x));
+  z = k > 60 ? pi_o_2 + 0.5f * pi_lo : z;
+  z = (hx < 0 && k < -60) ? 0.0f : z;
+  const float zl = z - pi_lo;
+  const float neg = hx < 0 ? (hy < 0 ? zl - pi : pi - zl) : -z;
+  return (hx >= 0 && hy >= 0) ? z : neg;
+}
+
+// atan2f(-(ay - by), ax - bx): the heading toward (ax, ay) from (bx, by) with
+// the screen's y axis down. The difference is negated, not swapped: where
+// ay == by, -(ay - by) is -0.0 and by - ay is +0.0, and atan2f tells them
+// apart for ax < bx (-pi and pi).
+LIBM_HD float atan2f_diff(float ay, float by, float ax, float bx) {
+  return atan2f(-(ay - by), ax - bx);
 }
 
 // ----------------------------------------------------------------- hypotf
+LIBM_COLD float hypotf_special(float x, float y) {
+  if (isinf(x) || isinf(y)) return INFINITY;
+  return x + y;
+}
+
+// sqrt(s), correctly rounded, for a positive normal double s whose square
+// root is normal too (all that hypotf passes: 2^-298 <= s < 2^257). A
+// reciprocal square root estimate, two Newton steps (each doubles its
+// bits: 2^-20 -> 2^-40 -> 2^-80, then double's roundings), one Markstein
+// step to a faithful g, and the rounding decided exactly: r = s - g*g is
+// exact for a faithful g, and with u = ulp(g) (u' below g: u/2 at a power
+// of two), sqrt(s) > g + u/2 iff r > g*u, and sqrt(s) < g - u'/2 iff
+// r <= -g*u' (r, g*u and g*u' are multiples of u'*u', and no square root
+// of a double lies on a midpoint). The library's sqrt takes a CALL to a slow
+// path for zero, subnormal, negative and infinite operands; this one has
+// none.
+LIBM_HD double sqrt_normal(double s) {
+#ifdef __CUDA_ARCH__
+  double y;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(y) : "d"(s));
+#else  // the host's estimate, cut to 20 bits: the steps below need no more
+  double y = 1.0 / sqrt(s);
+  uint64_t yb;
+  memcpy(&yb, &y, sizeof yb);
+  yb &= 0xffffffff00000000ull;
+  memcpy(&y, &yb, sizeof y);
+#endif
+  double g = s * y, h = 0.5 * y;
+  double r = fma(-g, h, 0.5);
+  g = fma(g, r, g);
+  h = fma(h, r, h);
+  r = fma(-g, h, 0.5);
+  g = fma(g, r, g);
+  h = fma(h, r, h);
+  g = fma(fma(-g, g, s), h, g);  // Markstein: faithful
+  r = fma(-g, g, s);              // exact
+  uint64_t gb;
+#ifdef __CUDA_ARCH__
+  gb = (uint64_t)__double_as_longlong(g);
+#else
+  memcpy(&gb, &g, sizeof gb);
+#endif
+  const uint64_t eb = gb & 0x7ff0000000000000ull;
+  const uint64_t ub = eb - (52ull << 52);                         // ulp(g)
+  const uint64_t db = (gb & 0x000fffffffffffffull) ? ub : ub - (1ull << 52);  // below g
+  double u, ud;
+#ifdef __CUDA_ARCH__
+  u = __longlong_as_double((long long)ub);
+  ud = __longlong_as_double((long long)db);
+#else
+  memcpy(&u, &ub, sizeof u);
+  memcpy(&ud, &db, sizeof ud);
+#endif
+  return r > g * u ? g + u : (r <= -(g * ud) ? g - ud : g);
+}
+
+// glibc's hypotf, (float) sqrt((double) x * x + (double) y * y). A float's
+// 24-bit significand squared fits in 48 of double's 53 bits and a float
+// squared (2^-298 to 2^256) stays in double's normal range, so both products
+// are exact and fma(dx, dx, dy * dy) rounds the same single sum. Non-finite
+// operands go out of line; s == 0 is a select.
 LIBM_HD float hypotf(float x, float y) {
-  if (!isfinite(x) || !isfinite(y)) {
-    if (isinf(x) || isinf(y)) return INFINITY;
-    return x + y;
-  }
-  double dx = x, dy = y;
-  return (float)sqrt(dx * dx + dy * dy);
+  if ((asuint(x) & 0x7fffffff) >= 0x7f800000u || (asuint(y) & 0x7fffffff) >= 0x7f800000u)
+    return hypotf_special(x, y);
+  const double dx = x, dy = y;
+  const double s = fma(dx, dx, dy * dy);
+  return (float)(s == 0.0 ? 0.0 : sqrt_normal(s));
+}
+
+// hypotf(ax - bx, ay - by): the distance from (bx, by) to (ax, ay).
+LIBM_HD float hypotf_diff(float ax, float bx, float ay, float by) {
+  return hypotf(ax - bx, ay - by);
 }
 
 }  // namespace libm_f32

@@ -86,6 +86,53 @@ def test_tanf_kernel_matches_the_cpu_transcription(card, shape):
     assert (_bits(got) == libm.transcribed_np("tanf", x.cpu().numpy()).view(np.int32)).all()
 
 
+def _strided_operands(kind, card):
+    """Four operands on the card as the env's and the NPC plan's call sites
+    pass them (views read in place), some pairs equal (-(a - a) is -0.0)."""
+    rng = np.random.RandomState(2)
+
+    def u(*shape):
+        return torch.from_numpy(rng.uniform(-100, 1100, shape).astype(np.float32)).to(card)
+    if kind == "contiguous (4096, 4)":
+        a, b, c, d = (u(4096, 4) for _ in range(4))
+        b[::3], d[1::4] = a[::3], c[1::4]
+        return a, b, c, d
+    if kind == "path (4096, 8, 160)":
+        path, pose = u(4096, 8, 160, 2), u(2, 4096, 8)
+        return path[..., 0], pose[0, ..., None], path[..., 1], pose[1, ..., None]
+    if kind == "goal (4096, 8)":
+        goal = u(4096, 8, 2)
+        return u(4096, 8), goal[..., 0], u(4096, 8), goal[..., 1]
+    if kind == "constant (4096, 8)":
+        return u(4096, 8), libm.const(400.0, card), u(4096, 8), libm.const(375.0, card)
+    if kind == "broadcast (64, 8, 8)":
+        return u(64, 1, 8), u(64, 8, 1), u(64, 1, 8), u(64, 8, 1)
+    raise ValueError(kind)
+
+
+STRIDED_CASES = ["contiguous (4096, 4)", "path (4096, 8, 160)", "goal (4096, 8)",
+                 "constant (4096, 8)", "broadcast (64, 8, 8)"]
+
+
+@pytest.mark.parametrize("kind", STRIDED_CASES)
+def test_strided_kernels_match_the_cpu(card, kind):
+    """atan2f_diff and hypotf_diff, one launch each on views read in place,
+    and atan2f and hypotf on two of the views (one launch of the diff
+    kernel), bit-equal to the same calls on the CPU (torch's subtractions,
+    then the host glibc)."""
+    xs = _strided_operands(kind, card)
+    cpu = [x.cpu() for x in xs]
+    for name, args in (("atan2f_diff", range(4)), ("hypotf_diff", range(4)),
+                       ("atan2f", (0, 1)), ("hypotf", (2, 1))):
+        fn = getattr(libm, name)
+        native.reset_launches()
+        got = fn(*(xs[i] for i in args))
+        torch.cuda.synchronize()
+        want = fn(*(cpu[i] for i in args))
+        assert dict(native.LAUNCHES) == {libm.KERNEL_OF.get(name, name): 1}
+        assert got.shape == want.shape and (_bits(got) == _bits(want)).all(), name
+
+
 def test_trig_kernels_out_of_domain_give_nan(card):
     """inf and NaN give NaN (the card's NaN bits are its own)."""
     x = torch.tensor([np.inf, -np.inf, np.nan], device=card)
