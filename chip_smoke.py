@@ -152,6 +152,26 @@ Phases, one line each; any failure exits nonzero:
               versions; then one plan of each on the card and on the CPU with
               the same injected draws: random shooting's best action and
               return bit-equal, CEM's mean and first action within CEM_TOL
+ 13. distributed  multi-process training (parallel/mesh.py): train
+              --distributed under torchrun --nproc_per_node 1 (NCCL, world
+              1) at 4096 x 4, rollout 64, bf16 MLP, 3 updates (the last
+              profiled), then the same command in one process (each a child
+              process running this script with --train-child): finite
+              losses, 48 optimizer steps,
+              K1 launched 64 x 3 times and every libm kernel at least once
+              (the child's launch counters), each on its last operands at
+              each shape bit-equal to its plain version; env-steps/s and the
+              rollout/update split of each run's second update, and the device
+              busy share, launches and top kernels of its third; one float32
+              update of a
+              fixed 64 x 4 x 16 CPU trajectory through the distributed
+              learner at world 1 (NCCL, in this process) and the plain
+              learner on the card, parameters within DIST_PARAM_TOL and
+              Adam's moments within DIST_MOMENT_TOL of their largest;
+              dryrun_multichip(1, "cuda") (every family's sharded train step
+              over NCCL, and the traffic families); dryrun_multichip(2,
+              "cuda", backend="gloo"), two ranks on the one card at dp 2 and
+              tp 2
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
 
@@ -180,7 +200,9 @@ their reset's observation), "launches_sac_train" those of train_sac at
 "launches_gym" those of the 200 config-1 gym steps on the card,
 "launches_traffic_full" those of the 200 exact steps at the full NPC width
 ("launches_traffic" are the narrowed run's), and "launches_plan_mpc" and
-"launches_plan_cem" those of one random-shooting and one CEM plan. K1's
+"launches_plan_cem" those of one random-shooting and one CEM plan,
+"launches_distributed" those of the first train --distributed run's 3
+updates at 4096 x 4. K1's
 "launches_traffic_by_m" and "launches_traffic_density10_by_m" count the
 narrowed run's launches at density 1 and 10 by obstacle count M, and its
 "*_traffic" keys hold its numbers at M = 40, "*_traffic_m<M>" at the
@@ -473,6 +495,8 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--train-child"]:          # the distributed phase's child
+        return train_child(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", metavar="DIR", nargs="+", default=[],
                     help="directories each holding another lidar.cu and libm.cu (and the "
@@ -810,7 +834,7 @@ def main() -> int:
     for name, fn in (("train", train_phase), ("traffic", traffic_phase),
                      ("policies", policies_phase), ("learners", learners_phase),
                      ("resume", resume_phase), ("gym", gym_phase),
-                     ("planning", planning_phase)):
+                     ("planning", planning_phase), ("distributed", distributed_phase)):
         t0 = time.perf_counter()
         if fn(dev, card, kernels):
             return 1
@@ -2145,6 +2169,179 @@ def planning_phase(dev, card, kernels) -> int:
                       f"{shot['cpu'][0].tolist()} and return {float(shot['cpu'][1])} bit-equal; "
                       f"CEM's mean and first action within {cem_diff:.3g} (tolerance {CEM_TOL} "
                       f"of {scale:.3g}); card {card}")
+    return 0
+
+
+def train_child(argv) -> int:
+    """``train.main(argv)`` (under torchrun for --distributed) with K1's and
+    the libm kernels' launches counted and each kernel held against its plain
+    version on its last operands at each shape, as the train phase does;
+    rank 0 prints one JSON line ``{"child": ...}``. 1 if a kernel disagrees
+    or never launched."""
+    from marl_traffic_intersection_tpu_torch import train
+    from marl_traffic_intersection_tpu_torch.ops import libm, native
+
+    native.reset_launches()
+    with k1_counted() as rec:
+        train.main(argv)
+    launches = dict(native.LAUNCHES)        # before the comparisons launch again
+    names = ["lidar_scan"] + [n for n in LIBM if libm.KERNEL_OF.get(n, n) == n]
+    held, bad = held_to_plain(rec, dict.fromkeys(names))
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(json.dumps({"child": {"launches": launches, "held": held, "bad": bad}}),
+              flush=True)
+    return 1 if bad else 0
+
+
+DIST_PARAM_TOL, DIST_MOMENT_TOL = 1e-5, 1e-4
+
+
+def distributed_phase(dev, card, kernels) -> int:
+    """Phase 13 (see the module docstring); 1 on failure."""
+    import torch.distributed as dist
+
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.dryrun import _free_port, dryrun_multichip
+    from marl_traffic_intersection_tpu_torch.models import make_model
+    from marl_traffic_intersection_tpu_torch.parallel.mesh import make_mesh
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner, Transition
+    from marl_traffic_intersection_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    # (a) train --distributed at full width over NCCL (world 1), in turns with
+    # the same command in one process
+    B, N, T = TRAIN_B, TRAIN_N, TRAIN_T
+    root = os.path.dirname(os.path.abspath(__file__))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    timing = {"distributed": [], "one process": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, distributed in enumerate((True, False)):
+            ck = os.path.join(tmp, f"run{i}")
+            argv = ["--num-envs", str(B), "--agents", str(N), "--rollout-len", str(T),
+                    "--updates", "3", "--log-every", "1", "--checkpoint", ck,
+                    "--profile", os.path.join(tmp, f"trace{i}.json.gz")]
+            cmd = (torchrun if distributed else [sys.executable]) + [
+                os.path.abspath(__file__), "--train-child", *argv,
+                *(["--distributed"] if distributed else [])]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=root)
+            secs = time.perf_counter() - t0
+            lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+            logs = [ln for ln in lines if "update" in ln]
+            child = next((ln["child"] for ln in lines if "child" in ln), None)
+            prof = next((ln["profile"] for ln in lines if "profile" in ln), {})
+            name = "distributed" if distributed else "one process"
+            if r.returncode != 0 or child is None:
+                phase("distributed", f"FAIL: {name} run exited {r.returncode}:\n"
+                                     f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+                return 1
+            launches, saved = child["launches"], restore_checkpoint(ck)
+            missing = [k for k in kernels if launches.get(k, 0) == 0]
+            if (len(logs) != 3 or not losses_finite(logs) or saved["update_count"] != 48
+                    or launches.get("lidar_scan", 0) != 3 * T or missing or child["bad"]):
+                phase("distributed", f"FAIL: {name}: {len(logs)} log lines, losses finite "
+                                     f"{losses_finite(logs)}, update_count "
+                                     f"{saved['update_count']} (want 48), launches {launches}, "
+                                     f"never launched {missing}, {child['bad']}")
+                return 1
+            if i == 0:
+                for k in kernels:
+                    kernels[k]["launches_distributed"] = launches[k]
+                mesh_line = next((ln for ln in r.stdout.splitlines() if ln.startswith("ranks=")),
+                                 "")
+                phase("distributed", f"train --distributed under torchrun, {B}x{N}, rollout "
+                                     f"{T}, 3 updates ({mesh_line}): 48 optimizer steps, finite "
+                                     f"losses, launches in the child {launches}; the kernels on "
+                                     f"their last operands bit-equal to their plain versions: "
+                                     f"{child['held']}")
+            top = [(k["name"][:50], round(k["ms_per_step"], 3), k["launches_per_step"])
+                   for k in prof.get("top_kernels", [])]
+            timing[name].append(dict(
+                wall_s=round(secs, 3), env_steps_per_s=logs[1]["env_steps_per_s"],
+                rollout_s=logs[1]["rollout_s"], update_s=logs[1]["update_s"],
+                profiled_update=dict(
+                    window_ms=round(prof.get("window_ms_per_step", 0), 1),
+                    device_busy_ms=round(prof.get("device_busy_ms_per_step", 0), 1),
+                    busy_share=round(prof.get("device_busy_share", 0), 4),
+                    launches=prof.get("kernel_launches_per_step"), top_kernels=top)))
+    phase("distributed", f"in turns (distributed, then one process), 3 updates each: the "
+                         f"first the warm-up, the second timed, the third profiled: "
+                         f"{json.dumps(timing)}; card {card}")
+
+    # (b) one float32 update of a fixed CPU trajectory through the distributed
+    # learner at world 1 (NCCL) and the plain learner, both on the card
+    cfg16 = PPOConfig(rollout_len=16)
+    f32 = dict(compute_dtype=torch.float32)
+    cpu_venv = VectorEnv(IntersectionEnv(EnvConfig(num_agents=4), device="cpu"), num_envs=64,
+                         seed=3)
+    g = torch.Generator().manual_seed(9)
+    perms = [torch.randperm(16, generator=g) for _ in range(cfg16.update_epochs)]
+    lrn = PPOLearner(cpu_venv, make_model("mlp", seed=5, **f32), cfg16, seed=4)
+    s0, o0 = cpu_venv.reset()
+    _, _, traj, lv = lrn._rollout(lrn.init().model, s0, o0)
+    advs, rets = lrn._gae(traj, lv)
+    updated = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        for which in ("plain", "distributed"):
+            queue = [p.to(dev) for p in perms]
+            ven = VectorEnv(IntersectionEnv(EnvConfig(num_agents=4), device=dev), num_envs=64)
+            lrn = PPOLearner(ven, make_model("mlp", seed=5, **f32), cfg16, seed=4,
+                             perm_fn=lambda n, q=queue: q.pop(0))
+            t_s = lrn.init()
+            if which == "distributed":
+                _, shard_ts, _ = lrn.distributed(mesh, "mlp")
+                t_s = shard_ts(t_s)
+            t_s, _ = lrn._update(t_s, Transition(*(t.to(dev) for t in traj)), advs.to(dev),
+                                 rets.to(dev))
+            st = t_s.optimizer.state
+            updated[which] = {k: [v.detach().cpu()] + [st[v][m].cpu() for m in
+                                                       ("exp_avg", "exp_avg_sq")]
+                              for k, v in t_s.model.named_parameters()}
+    finally:
+        dist.destroy_process_group()
+    a, b = updated["plain"], updated["distributed"]
+    diff = max(float((a[k][0] - b[k][0]).abs().max()) for k in a)
+    mdiff = max(float((a[k][i] - b[k][i]).abs().max() / a[k][i].abs().max())
+                for k in a for i in (1, 2))
+    msg = (f"64x4x16 CPU trajectory, one float32 update (16 Adam steps) through the "
+           f"distributed learner at world 1 (NCCL) and the plain learner on the card: "
+           f"parameters within {diff:.3g} (tolerance {DIST_PARAM_TOL}), Adam moments within "
+           f"{mdiff:.3g} of their largest (tolerance {DIST_MOMENT_TOL})")
+    if not (diff <= DIST_PARAM_TOL and mdiff <= DIST_MOMENT_TOL):
+        phase("distributed", "FAIL: " + msg)
+        return 1
+    phase("distributed", msg)
+
+    # (c) the dry run of every family in one NCCL process
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = dryrun_multichip(1, "cuda", timeout=300)
+    want = [f"dryrun ok: {kind} dp=1 tp=1" for kind in (
+        "mlp", "attention", "conv", "gru", "central", "sac", "mlp+traffic", "gru+traffic",
+        "sac+traffic")]
+    if lines != want:
+        phase("distributed", f"FAIL: dryrun_multichip(1, 'cuda') gave {lines}")
+        return 1
+    phase("distributed", f"dryrun_multichip(1, 'cuda'): {len(lines)} families ok in "
+                         f"{time.perf_counter() - t0:.1f} s")
+
+    # (d) two ranks on the one card: NCCL refuses two ranks on one device,
+    # gloo stages the card's tensors through the host
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = dryrun_multichip(2, "cuda", backend="gloo", timeout=300)
+    want = [f"dryrun ok: {kind} dp={2 // tp} tp={tp}" for kind in (
+        "mlp", "attention", "conv", "gru", "central", "sac", "mlp+traffic", "gru+traffic",
+        "sac+traffic") for tp in (1, 2)]
+    if lines != want:
+        phase("distributed", f"FAIL: dryrun_multichip(2, 'cuda', backend='gloo') gave {lines}")
+        return 1
+    phase("distributed", f"dryrun_multichip(2, 'cuda', backend='gloo'), two ranks on cuda:0: "
+                         f"{len(lines)} family steps ok (dp 2 and tp 2) in "
+                         f"{time.perf_counter() - t0:.1f} s")
     return 0
 
 

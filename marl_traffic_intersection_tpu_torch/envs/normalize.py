@@ -46,9 +46,15 @@ class RewardNormVecEnv:
         """The wrapped VectorEnv's route generator."""
         return self.venv.generator
 
+    def with_mesh(self, mesh) -> "RewardNormVecEnv":
+        """This wrapper over ``venv.with_mesh(mesh)``; the statistics are per
+        env, so each rank keeps its own envs'."""
+        return RewardNormVecEnv(self.venv.with_mesh(mesh), self.gamma, self.clip, self.eps,
+                                self.warmup)
+
     def reset(self) -> Tuple[NormState, torch.Tensor]:
         env_state, obs = self.venv.reset()
-        b, n, dev = self.num_envs, self.env.config.num_agents, self.env.device
+        b, n, dev = obs.shape[0], self.env.config.num_agents, self.env.device
         f32 = dict(dtype=torch.float32, device=dev)
         return NormState(env_state=env_state, ret=torch.zeros((b, n), **f32),
                          count=torch.zeros((b,), dtype=torch.int32, device=dev),

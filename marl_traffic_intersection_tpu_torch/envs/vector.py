@@ -33,9 +33,21 @@ fresh pool is empty, so the observation of the merged state and
 ``final_obs`` use the step's width with no further read. ``env.npc_stats``
 counts these reads in ``host_reads`` and ``tier_reads``, and how often each
 width ran in ``step_width_<w>`` (w = max_npcs for the full pool).
+
+``with_mesh(mesh)`` (parallel/mesh.py) binds a copy to a device mesh: it
+steps this rank's ``num_envs // data ranks`` envs (``num_envs`` stays the
+global count) and shares the generator. Every draw that depends on the batch
+(routes at reset and auto-reset, NPC spawns; the learners' action noise
+likewise) is made for the global batch on every rank from the same
+generator, and the rank keeps its rows, so the ranks' states put together
+are bit-equal to one process stepping the global batch. The NPC width is
+read from the rank's own envs, as the JAX package's shard-local tier conds
+are; every width is bit-equal to the full pool, so that choice cannot change
+a result.
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -99,6 +111,16 @@ class VectorEnv:
         self.spawn_sampler = spawn_sampler
         cfg = env.config
         self.npc_widths = npc_tier_widths(cfg.npc_tier, cfg.max_npcs) if cfg.traffic_flow else []
+        self.mesh = None
+        self.rows = slice(None)         # this rank's envs of the global batch
+
+    def with_mesh(self, mesh) -> "VectorEnv":
+        """A copy stepping this rank's envs of ``mesh``'s data shards (see the
+        module docstring); it shares the generator and the samplers."""
+        from ..parallel.mesh import data_axis, data_slice
+        bound = copy.copy(self)
+        bound.mesh, bound.rows = mesh, data_slice(data_axis(mesh), self.num_envs)
+        return bound
 
     def sample_routes(self, num_envs: int) -> torch.Tensor:
         """(num_envs, N) route ids from the pool: without replacement when the
@@ -115,8 +137,9 @@ class VectorEnv:
         return self.route_pool[idx]
 
     def reset(self):
-        """Batched reset: (state, obs) with leading dim num_envs."""
-        state = self.env.reset_state(self.route_sampler(self.num_envs))
+        """Batched reset: (state, obs) with leading dim num_envs (this rank's
+        envs when bound to a mesh)."""
+        state = self.env.reset_state(self.route_sampler(self.num_envs)[self.rows])
         return state, self.env.observe(state)
 
     def _step_width(self, npc: NpcState) -> Optional[int]:
@@ -147,6 +170,7 @@ class VectorEnv:
             spawn = self.spawn_sampler(self.num_envs) if self.spawn_sampler else \
                 spawn_decision(self.generator, self.num_envs, self.env.traffic_ids.shape[0],
                                cfg.traffic_density, dt)
+            spawn = tuple(x[self.rows] for x in spawn)
         w = self._step_width(state.npc) if self.npc_widths else None
         # without auto-reset the observation is built inside the step, on the
         # narrowed pool
@@ -156,7 +180,7 @@ class VectorEnv:
         if not self.auto_reset:
             return new_state, out
         ep_done = out.terminated | out.truncated                     # (B,)
-        fresh = self.env.reset_state(self.route_sampler(self.num_envs))
+        fresh = self.env.reset_state(self.route_sampler(self.num_envs)[self.rows])
 
         def pick(a, b):
             return torch.where(ep_done.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)

@@ -12,7 +12,8 @@ jax.random streams).
 ``dense`` and ``lecun_normal_`` are the flax ``nn.Dense`` conventions the
 other families build on: parameters in float32, cast to the compute dtype at
 the product; kernels initialised like flax's default (truncated normal,
-variance 1/fan_in) unless a family asks for orthogonal ones.
+variance 1/fan_in) unless a family asks for orthogonal ones. ``dense`` also
+runs a layer sharded over the mesh's model axis (models/tp.py).
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from .tp import copy_in, gather_out, local_in, row_product
 
 
 # f32 constants, as the JAX package evaluates them: log(2*pi), log(2) and
@@ -33,8 +36,18 @@ HALF_LOG_2PIE = float(np.float32(0.5 * np.log(2.0 * np.pi * np.e)))
 
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` applied in ``dtype``: weight and bias cast to it, like flax's
-    ``nn.Dense(dtype=..., param_dtype=float32)``."""
-    return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    ``nn.Dense(dtype=..., param_dtype=float32)``. A layer that
+    ``parallel/mesh.py::shard_model_`` tagged with a ``tp_role`` runs as
+    that tensor-parallel role (models/tp.py)."""
+    role = getattr(layer, "tp_role", None)
+    if role is None:
+        return F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    if role.kind == "row":
+        w = layer.weight.to(dtype).float()
+        return row_product(local_in(x, role, w.shape[1]), role, lambda x32: F.linear(x32, w),
+                           layer.bias, dtype)
+    y = F.linear(copy_in(x, role), layer.weight.to(dtype), layer.bias.to(dtype))
+    return gather_out(y, role) if role.kind == "gather" else y
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:

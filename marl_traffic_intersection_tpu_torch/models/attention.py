@@ -19,6 +19,8 @@ negative value, and the softmax in the compute dtype, written out rather
 than fused, so the comparison with flax stays plain. The projections keep
 flax's shapes: ``query``/``key``/``value`` kernels (D, H, Dh) and ``out``
 (H, Dh, D), stored here as ``nn.Linear`` weights (H*Dh, D) and (D, H*Dh).
+Sharded over the mesh's model axis, a rank holds whole heads: the
+projections' head-major rows and ``out``'s columns (models/tp.py).
 """
 from __future__ import annotations
 
@@ -59,7 +61,10 @@ class Attention(nn.Module):
         """x (B, T, D) in the compute dtype; keep (B, T) bool, False = masked key."""
         cd = x.dtype
         b, t, d = x.shape
-        h, dh = self.heads, self.head_dim
+        dh = self.head_dim
+        # the heads this rank holds: all of them unless the projections
+        # are sharded over the model axis (column split on heads)
+        h = self.query.weight.shape[0] // dh
         q, k, v = (dense(p, x, cd).reshape(b, t, h, dh) for p in (self.query, self.key, self.value))
         # flax divides by sqrt(head_dim) rounded to the compute dtype; the
         # divisor is a device-resident 0-d tensor (ops/libm.div)

@@ -12,7 +12,9 @@ families they compute in bfloat16 with float32 parameters and outputs.
   * ``TwinQCritic``: the JAX package's two ``QCritic`` parameter sets stacked
     on a leading axis of 2 and applied under ``vmap`` (parallel/sac.py). Here
     each layer's weight is held as that stack, (2, in, out) in flax's layout,
-    and applied to both critics at once with ``torch.baddbmm``.
+    and applied to both critics at once with ``torch.baddbmm``. Sharded over
+    the mesh's model axis, the first layer splits its output features and the
+    later ones their input features, the twin axis whole (models/tp.py).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from .actor_critic import LOG_2, LOG_2PI, dense, init_linear_
+from .tp import copy_in, local_in, row_product
 
 LOG_STD_MIN = -5.0
 LOG_STD_MAX = 2.0
@@ -82,6 +85,8 @@ class TwinQCritic(nn.Module):
             for w, gain in zip(self.kernels, gains):
                 for twin in w:     # (in, out): orthogonal as flax draws it
                     nn.init.orthogonal_(twin.T, gain=float(gain))
+        # each layer's models/tp.py role when sharded over the model axis
+        self.tp_roles = None
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
@@ -90,7 +95,15 @@ class TwinQCritic(nn.Module):
         x = x.expand(2, -1, -1)
         last = len(self.kernels) - 1
         for i, (w, b) in enumerate(zip(self.kernels, self.biases)):
-            x = torch.baddbmm(b.to(cd)[:, None, :], x, w.to(cd))
+            role = self.tp_roles[i] if self.tp_roles else None
+            if role is None:
+                x = torch.baddbmm(b.to(cd)[:, None, :], x, w.to(cd))
+            elif role.kind == "column":
+                x = torch.baddbmm(b.to(cd)[:, None, :], copy_in(x, role), w.to(cd))
+            else:
+                wf = w.to(cd).float()
+                x = row_product(local_in(x, role, wf.shape[1]), role,
+                                lambda x32: torch.bmm(x32, wf), b[:, None, :], cd)
             if i < last:
                 x = torch.relu(x)
         return x[..., 0].float().reshape(2, *lead)

@@ -27,6 +27,25 @@ the JAX package:
 
 The trajectory buffers are allocated once per rollout at their full (T, ...)
 size and filled in place.
+
+``distributed(mesh, model_kind)`` runs the same step on a ``(data, model)``
+mesh (parallel/mesh.py), one process per rank, and returns ``(step,
+shard_ts, shard_env)`` as the JAX package's ``jit_train_step(mesh)`` does.
+The step equals the single-process step on the global batch up to the order
+of float32 sums:
+
+  - the env and the action noise draw for the global batch and keep the
+    rank's rows (envs/vector.py), and every rank draws the same minibatch
+    permutations of the time axis, so each cuts the same time slices from
+    its env shard;
+  - advantages are normalised with the global minibatch's mean and
+    population std: two all-reduced sums, two passes as in one process;
+  - the gradients are averaged over the data ranks, then clipped by the
+    global norm, whose split parameters' squares are summed over the model
+    ranks and whose replicated ones count once; Adam on a shard equals Adam
+    on the whole, elementwise;
+  - metrics stay per rank until ``read_metrics(metrics, mesh)`` averages
+    them over the data ranks, one all-reduce per log point.
 """
 from __future__ import annotations
 
@@ -40,6 +59,8 @@ from torch import nn
 from ..core.constants import (STATUS_CRASH_CAR, STATUS_CRASH_LINE, STATUS_CRASH_WALL,
                               STATUS_SUCCESS)
 from ..models.actor_critic import draw_noise, logp_and_entropy, sample_action
+from .mesh import (average_gradients_, axis_mean, axis_sum_, data_axis, global_grad_norm,
+                   global_rows, model_axis, shard_batch_tree, shard_model_)
 
 LOSS_METRICS = ("pg_loss", "v_loss", "entropy", "approx_kl")
 
@@ -77,9 +98,12 @@ class Transition(NamedTuple):
     status: torch.Tensor       # (T, B, N) int32 STATUS_*
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm on ``grads`` in place; returns the norm."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """optax.clip_by_global_norm on ``grads`` in place; returns the norm
+    (given, or that of ``grads``)."""
+    if norm is None:
+        norm = torch.sqrt(sum((g * g).sum() for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm) * max_norm))
@@ -99,6 +123,30 @@ class PPOLearner:
         self.noise_fn = noise_fn or (lambda shape: draw_noise(shape, self.noise_generator))
         self.perm_fn = perm_fn or (lambda n: torch.randperm(
             n, generator=self.perm_generator, device=self.device))
+        self.mesh = None
+
+    def distributed(self, mesh, model_kind: str):
+        """Bind the learner to ``mesh``: ``(step, shard_ts, shard_env)``.
+        ``step`` is ``train_step``; ``shard_ts(ts)`` splits the model (and
+        Adam's moments) over the model axis by ``model_kind``'s rules;
+        ``shard_env(*carry)`` cuts a global carry (env state, obs [, hidden
+        state]) to this rank's envs. See the module docstring."""
+        if self.mesh is None:
+            self.mesh, self.data_axis, self.model_axis = mesh, data_axis(mesh), model_axis(mesh)
+            self.env = self.env.with_mesh(mesh)
+            draw = self.noise_fn
+            self.noise_fn = lambda shape: global_rows(self.data_axis, draw, shape)
+        elif self.mesh is not mesh:
+            raise ValueError("the learner is bound to another mesh")
+
+        def shard_ts(ts: TrainState) -> TrainState:
+            shard_model_(ts.model, model_kind, mesh, [ts.optimizer])
+            return ts
+
+        def shard_env(*carry):
+            return shard_batch_tree(mesh, carry)
+
+        return self.train_step, shard_ts, shard_env
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -162,7 +210,8 @@ class PPOLearner:
         cfg = self.cfg
         logp, entropy = logp_and_entropy(mean, log_std, raw)
         ratio = torch.exp(logp - old_logp)
-        adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        mean, std = self._adv_stats(adv)
+        adv_n = (adv - mean) / (std + 1e-8)
         pg1 = ratio * adv_n
         pg2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv_n
         pg_loss = -torch.minimum(pg1, pg2).mean()
@@ -173,6 +222,15 @@ class PPOLearner:
         metrics = dict(pg_loss=pg_loss, v_loss=v_loss, entropy=ent,
                        approx_kl=(old_logp - logp).mean())
         return total, metrics
+
+    def _adv_stats(self, adv: torch.Tensor):
+        """The minibatch's mean and population std of the advantages; on a
+        mesh, the global minibatch's, from all-reduced sums."""
+        if self.mesh is None:
+            return adv.mean(), adv.std(correction=0)
+        count = adv.numel() * self.data_axis.size
+        mean = axis_sum_(adv.sum(), self.data_axis) / count
+        return mean, torch.sqrt(axis_sum_(((adv - mean) ** 2).sum(), self.data_axis) / count)
 
     def _minibatches(self, traj: Transition, advs: torch.Tensor, rets: torch.Tensor):
         """Per epoch, ``num_minibatches`` batches of ``_loss``: one permutation
@@ -200,7 +258,13 @@ class PPOLearner:
             loss, metrics = self._loss(ts.model, batch, actor_on)
             ts.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-            clip_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
+            grads = [p.grad for p in params]
+            if self.mesh is None:
+                clip_by_global_norm_(grads, cfg.max_grad_norm)
+            else:
+                average_gradients_(params, self.data_axis)
+                clip_by_global_norm_(grads, cfg.max_grad_norm,
+                                     global_grad_norm(params, self.model_axis))
             ts.optimizer.step()
             ts.update_count += 1
             sums += torch.stack([metrics[k].detach() for k in LOSS_METRICS])
@@ -240,6 +304,10 @@ class PPOLearner:
         return ts, env_state, obs, metrics
 
 
-def read_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """The metrics as Python floats, with one copy from the device."""
-    return dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+def read_metrics(metrics: Dict[str, torch.Tensor], mesh=None) -> Dict[str, float]:
+    """The metrics as Python floats, with one copy from the device; given
+    the learner's mesh, their means over the data ranks (one all-reduce)."""
+    values = torch.stack([v.float() for v in metrics.values()])
+    if mesh is not None:
+        values = axis_mean(values, data_axis(mesh))
+    return dict(zip(metrics, values.tolist()))

@@ -17,7 +17,9 @@ Adam and ``critic_warmup`` from it:
     ``torch.randperm`` on the learner's permutation generator).
 
 ``train_step(ts, env_state, obs, h)`` returns ``(ts, env_state, obs, h,
-metrics)``.
+metrics)``. ``distributed(mesh, "gru")`` is the feedforward learner's: the
+hidden state is a carry that ``shard_env`` cuts to the rank's envs like the
+observation, and every rank draws the same chunk order.
 """
 from __future__ import annotations
 

@@ -27,6 +27,23 @@ The action noise and the sample indices come from ``noise_fn`` and
 ``index_fn`` (default: draws on the learner's generator), so tests can feed
 the JAX package's draws. Every optimizer is ``torch.optim.Adam(eps=1e-8)``,
 optax's ``adam``.
+
+``distributed(mesh, model_kind)`` binds the learner to a ``(data, model)``
+mesh (parallel/mesh.py) and returns ``(step, shard_ts, shard_env)``, as the
+JAX package's ``jit_train_step(mesh)`` does:
+
+  - the env steps this rank's envs, and the rollout's action noise is drawn
+    for the global batch and cut to them (envs/vector.py);
+  - the ring is split over the data ranks by env: each slot holds, on each
+    rank, the rows of that rank's envs. ``chunk``, ``capacity`` and ``size``
+    stay global, and a global row ``slot * chunk + env * N + agent`` lives on
+    the rank holding ``env``;
+  - every rank draws the same global sample indices; each reads the rows it
+    holds and one all-gather over the data ranks assembles the batch, which
+    is then bit-equal to the single-process ring's sample at those indices;
+  - the actor is split over the model axis by ``model_kind``'s rule and the
+    twin critic and its target by ``sac_q``. Every data rank holds the same
+    batch, so their gradients are already equal and are not averaged.
 """
 from __future__ import annotations
 
@@ -39,6 +56,7 @@ from torch import nn
 
 from ..models.actor_critic import draw_noise
 from ..models.sac import SquashedGaussianActor, TwinQCritic, sample_squashed
+from .mesh import data_axis, global_rows, shard_batch_tree, shard_model_
 
 
 @dataclass(frozen=True)
@@ -98,7 +116,41 @@ class SACLearner:
                                else -float(self.actor.act_dim))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.noise_fn = noise_fn or (lambda shape: draw_noise(shape, self.generator))
+        self.act_noise_fn = self.noise_fn        # the rollout's; the update's is noise_fn
         self.index_fn = index_fn or self._draw_indices
+        self.mesh = None
+        self.local_chunk = self.chunk            # ring rows of one slot on this rank
+
+    def distributed(self, mesh, model_kind: str = "sac"):
+        """Bind the learner to ``mesh``: ``(step, shard_ts, shard_env)``, see
+        the module docstring. ``shard_ts`` takes a state of ``init`` (the
+        whole ring) and keeps this rank's rows and parameter shards."""
+        if self.mesh is None:
+            self.mesh, self.data_axis = mesh, data_axis(mesh)
+            self.env = self.env.with_mesh(mesh)
+            self.local_chunk = self.chunk // self.data_axis.size
+            draw = self.act_noise_fn
+            self.act_noise_fn = lambda shape: global_rows(self.data_axis, draw, shape)
+        elif self.mesh is not mesh:
+            raise ValueError("the learner is bound to another mesh")
+
+        def shard_ts(ts: SACState) -> SACState:
+            shard_model_(ts.actor, model_kind, mesh, [ts.actor_opt])
+            shard_model_(ts.critic, "sac_q", mesh, [ts.q_opt])
+            shard_model_(ts.critic_target, "sac_q", mesh)
+            buf = ts.buffer
+            if buf.obs.shape[0] == self.capacity:
+                rank, k = self.data_axis.rank, self.local_chunk
+                for f in ("obs", "action", "reward", "next_obs", "done"):
+                    x = getattr(buf, f)
+                    x = x.reshape(-1, self.chunk, *x.shape[1:])[:, rank * k:(rank + 1) * k]
+                    setattr(buf, f, x.reshape(-1, *x.shape[2:]).clone())
+            return ts
+
+        def shard_env(*carry):
+            return shard_batch_tree(mesh, carry)
+
+        return self.train_step, shard_ts, shard_env
 
     def _draw_indices(self, n: int, size: torch.Tensor) -> torch.Tensor:
         """n uniform indices in [0, max(size, 1)), drawn on the device."""
@@ -126,8 +178,9 @@ class SACLearner:
 
     # --------------------------------------------------------------- buffer
     def _insert(self, buf: ReplayBuffer, obs, action, reward, next_obs, done) -> None:
-        """Write one (chunk,)-row transition block at the aligned ring slot."""
-        rows = slice(buf.ptr * self.chunk, (buf.ptr + 1) * self.chunk)
+        """Write one (chunk,)-row transition block at the aligned ring slot
+        (this rank's rows of it on a mesh)."""
+        rows = slice(buf.ptr * self.local_chunk, (buf.ptr + 1) * self.local_chunk)
         for dst, src in ((buf.obs, obs), (buf.action, action), (buf.reward, reward),
                          (buf.next_obs, next_obs), (buf.done, done)):
             dst[rows] = src
@@ -137,13 +190,24 @@ class SACLearner:
     def _insert_step(self, buf: ReplayBuffer, obs, action, out) -> None:
         """Insert an env step's transitions, one row per (env, agent)."""
         done = (out.terminated | out.truncated)[:, None] | out.done
-        flat = lambda x: x.reshape((self.chunk,) + x.shape[2:])
+        flat = lambda x: x.reshape((self.local_chunk,) + x.shape[2:])
         self._insert(buf, flat(obs), flat(action), flat(out.reward), flat(out.obs),
                      flat(done.float()))
 
     def _sample(self, buf: ReplayBuffer, n: int):
         idx = self.index_fn(n, buf.size)
-        return buf.obs[idx], buf.action[idx], buf.reward[idx], buf.next_obs[idx], buf.done[idx]
+        fields = (buf.obs, buf.action, buf.reward, buf.next_obs, buf.done)
+        if self.mesh is None:
+            return tuple(x[idx] for x in fields)
+        # the rank holding global row idx, and that row's place in its ring
+        slot, within = idx // self.chunk, idx % self.chunk
+        owner, local = within // self.local_chunk, slot * self.local_chunk + within % self.local_chunk
+        widths = [x[0].numel() for x in fields]
+        mine = torch.cat([x[local].reshape(n, -1) for x in fields], 1)
+        parts = [torch.empty_like(mine) for _ in range(self.data_axis.size)]
+        torch.distributed.all_gather(parts, mine, group=self.data_axis.group)
+        rows = torch.stack(parts)[owner, torch.arange(n, device=idx.device)]
+        return tuple(r.reshape(n, *x.shape[1:]) for r, x in zip(rows.split(widths, 1), fields))
 
     # --------------------------------------------------------------- update
     def _update(self, ts: SACState) -> Dict[str, torch.Tensor]:
@@ -213,7 +277,7 @@ class SACLearner:
         for _ in range(self.cfg.steps_per_call):
             with torch.no_grad():
                 mean, log_std = ts.actor(obs)
-                action, _ = sample_squashed(mean, log_std, self.noise_fn(mean.shape))
+                action, _ = sample_squashed(mean, log_std, self.act_noise_fn(mean.shape))
                 env_state, out = self.env.step(env_state, action)
                 self._insert_step(ts.buffer, obs, action, out)
             metrics = self._update(ts)

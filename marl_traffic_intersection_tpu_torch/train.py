@@ -53,23 +53,51 @@ the update at each log point, at step ``update``. The writer
 imported only when ``--tb`` is given.
 
 ``--lidar-impl`` is accepted for train.py's sake: every choice runs kernel
-K1 (the JAX package's lidar variants are bit-identical). Not here yet:
-train.py's ``--tp`` and ``--distributed`` (multi-GPU).
+K1 (the JAX package's lidar variants are bit-identical).
+
+Several cards: one process per card under torchrun, with ``--distributed``
+(and ``--tp N`` to split the model over N of them)::
+
+  torchrun --standalone --nproc_per_node 8 -m marl_traffic_intersection_tpu_torch.train \
+      --distributed --tp 2 --num-envs 4096
+  torchrun --standalone --nproc_per_node 4 -m marl_traffic_intersection_tpu_torch.train \
+      --distributed --tp 2 --device cpu --num-envs 8 --updates 2    # gloo, on the CPU
+
+``--distributed`` initialises the process group from torchrun's environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``)
+and raises without it: NCCL with each rank on ``cuda:LOCAL_RANK``, or gloo
+with ``--device cpu``. The ranks form a ``(data, model)`` mesh of
+``WORLD_SIZE // tp`` x ``tp`` (parallel/mesh.py), a ``(replica, data,
+model)`` one when torchrun spans several nodes. ``--num-envs`` is the global
+batch, split over the data ranks, and a run equals the single-process run of
+that batch up to the order of float32 sums (parallel/ppo.py). Rank 0 alone
+prints, writes ``--tb`` and ``--profile`` and saves; the snapshot holds the
+whole parameters, Adam moments, env state and generators, the format of a
+single-process run, so it resumes at any mesh and in one process.
+
+Where the JAX package's train.py drives every local device from one
+process, and ``--tp`` alone splits the model over them, PyTorch runs one
+process per card: ``--tp`` greater than 1 needs ``--distributed`` and
+torchrun, and raises otherwise.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .core.env import EnvConfig, IntersectionEnv, RewardParams
 from .device import resolve_device
 from .envs.normalize import RewardNormVecEnv
 from .envs.vector import VectorEnv
 from .models import make_model
+from .parallel.mesh import (full_state_dicts, gather_batch_tree, init_from_torchrun,
+                            make_hybrid_mesh, make_mesh)
 from .parallel.ppo import PPOConfig, PPOLearner, read_metrics
 from .parallel.recurrent_ppo import RecurrentPPOLearner
 from .utils.checkpoint import (checkpoint_exists, env_state_from_dict, env_state_to_dict,
@@ -128,6 +156,12 @@ def main(argv=None):
     ap.add_argument("--rollout-len", type=int, default=64)
     ap.add_argument("--model", choices=["mlp", "attention", "conv", "gru", "central"],
                     default="mlp")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis size: split the model over this many ranks "
+                         "(needs --distributed)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="one process per rank under torchrun: the process group from "
+                         "torchrun's environment, NCCL on the cards or gloo with --device cpu")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ent-coef", type=float, default=0.01)
     ap.add_argument("--critic-warmup", type=int, default=0,
@@ -163,11 +197,36 @@ def main(argv=None):
                          "trace to TRACE (.json or .json.gz)")
     args = ap.parse_args(argv)
     args.log_every = max(1, args.log_every)
-    recurrent = args.model == "gru"
+    if args.tp > 1 and not args.distributed:
+        raise ValueError(f"--tp {args.tp} splits the model over {args.tp} processes, one per "
+                         "card: run it under torchrun --nproc_per_node N ... --distributed "
+                         "(N a multiple of --tp)")
+    if not args.distributed:
+        return _train(args, resolve_device(args.device), None)
+    dev = init_from_torchrun(args.device)
+    try:
+        world = dist.get_world_size()
+        per_node = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        mesh = make_hybrid_mesh(args.tp) if world > per_node else make_mesh(n_model=args.tp)
+        return _train(args, dev, mesh)
+    finally:
+        dist.destroy_process_group()
 
-    dev = resolve_device(args.device)
+
+def _train(args, dev: torch.device, mesh):
+    """The training loop of ``main``; ``mesh`` None in one process."""
+    recurrent = args.model == "gru"
+    rank0 = mesh is None or dist.get_rank() == 0
+
+    def log(*a, **kw):
+        if rank0:
+            print(*a, **kw)
+
     dev_name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"device={dev} ({dev_name})")
+    log(f"device={dev} ({dev_name})")
+    if mesh is not None:
+        log(f"ranks={dist.get_world_size()} backend={dist.get_backend()} "
+            f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
     stages = parse_curriculum(args.curriculum) if args.curriculum else [({}, args.updates)]
     model = make_model(args.model, seed=args.seed)
@@ -185,7 +244,7 @@ def main(argv=None):
     if not args.resume and args.checkpoint and checkpoint_exists(args.checkpoint):
         args.resume = args.checkpoint
         auto_resumed = True
-        print(f"auto-resuming from existing checkpoint {args.checkpoint}")
+        log(f"auto-resuming from existing checkpoint {args.checkpoint}")
     resume = None
     if args.resume:
         if resolve_policy(args.resume)[0] == "export":
@@ -199,20 +258,26 @@ def main(argv=None):
     def save(u):
         if not args.checkpoint:
             return
+        if mesh is None:
+            model_sd, opt_sd, whole = ts.model.state_dict(), ts.optimizer.state_dict(), carry
+        else:       # every rank takes part in the gathers; rank 0 writes
+            model_sd, opt_sd = full_state_dicts(ts.model, ts.optimizer, mesh)
+            whole = gather_batch_tree(mesh, carry)
+        if not rank0:
+            return
         snapshot = {
-            "model": ts.model.state_dict(), "optimizer": ts.optimizer.state_dict(),
-            "update": u, "update_count": ts.update_count,
-            "env_state": env_state_to_dict(carry[0]), "obs": carry[1],
+            "model": model_sd, "optimizer": opt_sd, "update": u, "update_count": ts.update_count,
+            "env_state": env_state_to_dict(whole[0]), "obs": whole[1],
             "generators": {"noise": learner.noise_generator.get_state(),
                            "perm": learner.perm_generator.get_state(),
                            "routes": learner.env.generator.get_state()}}
         if recurrent:
-            snapshot["h"] = carry[2]
+            snapshot["h"] = whole[2]
         save_checkpoint(args.checkpoint, snapshot)
-        print(f"saved {args.checkpoint} @ update {u}")
+        log(f"saved {args.checkpoint} @ update {u}")
 
     tb = None
-    if args.tb:
+    if args.tb and rank0:
         from torch.utils.tensorboard import SummaryWriter
         tb = SummaryWriter(args.tb)
 
@@ -259,7 +324,7 @@ def main(argv=None):
                     group["lr"] = lr
                 # update_count (the critic warm-up's clock) restarts at 0, as
                 # train.py's resume keeps learner.init's counter
-                print(f"resumed from {args.resume} at update {start_update}")
+                log(f"resumed from {args.resume} at update {start_update}")
         else:
             # the policy, Adam's moments and the generators carry over; the
             # stage's learning rate applies from here on
@@ -269,7 +334,7 @@ def main(argv=None):
             learner.perm_generator.set_state(prev.perm_generator.get_state())
 
         if len(stages) > 1:
-            print(json.dumps({"stage": stage_idx, "agents": agents, "traffic": traffic,
+            log(json.dumps({"stage": stage_idx, "agents": agents, "traffic": traffic,
                               "density": density, "ent_coef": ent_coef, "lr": lr,
                               "updates": updates}))
 
@@ -286,6 +351,12 @@ def main(argv=None):
             learner.perm_generator.set_state(gens["perm"])
             venv.generator.set_state(gens["routes"])     # routes and NPC spawns
             resume = None
+        if mesh is not None:
+            # the learner steps this rank's envs from here on: its env is a
+            # bound copy sharing venv's generator
+            _, shard_ts, shard_env = learner.distributed(mesh, args.model)
+            ts = shard_ts(ts)
+            carry = list(shard_env(*carry))
 
         meter = StepsPerSecond(steps_per_tick=args.num_envs * rollout_len)
         last = stage_hi - 1
@@ -294,21 +365,21 @@ def main(argv=None):
         for u in range(start_update, stage_hi):
             log_point = (u - start_update) % args.log_every == 0 or u == last
             split = {} if log_point else None
-            if args.profile and u == last and stage_idx == len(stages) - 1:
+            if args.profile and rank0 and u == last and stage_idx == len(stages) - 1:
                 out = []
                 prof = profile_steps(
                     lambda: out.append(learner.train_step(ts, *carry, split)), 1,
                     trace=args.profile)
                 ts, *carry, metrics = out[0]
                 prof["top_kernels"] = prof["top_kernels"][:6]
-                print(json.dumps({"profile": prof}), flush=True)
+                log(json.dumps({"profile": prof}), flush=True)
             else:
                 ts, *carry, metrics = learner.train_step(ts, *carry, split)
             if log_point:
-                m = read_metrics(metrics)      # one copy from the device
+                m = read_metrics(metrics, mesh)      # one copy from the device
                 meter.tick()
                 now = time.perf_counter()
-                print(json.dumps({
+                log(json.dumps({
                     "update": u,
                     "secs": round((now - t_log) / (u - last_log_u), 3),
                     "env_steps_per_s": round(meter.value, 1),
@@ -329,11 +400,11 @@ def main(argv=None):
     if tb is not None:
         tb.close()
     if ts is None:
-        print("nothing to do: checkpoint already covers all updates")
+        log("nothing to do: checkpoint already covers all updates")
         return
     save(start_update)
     if dev.type == "cuda":
-        print(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+        log(f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
 
 
 if __name__ == "__main__":

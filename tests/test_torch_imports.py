@@ -22,6 +22,9 @@ from marl_traffic_intersection_tpu_torch import convert, evaluate, bench, train 
 from marl_traffic_intersection_tpu_torch import serve, train_sac  # noqa: F401
 from marl_traffic_intersection_tpu_torch import models, parallel, utils  # noqa: F401
 from marl_traffic_intersection_tpu_torch.parallel import recurrent_ppo, sac  # noqa: F401
+from marl_traffic_intersection_tpu_torch.parallel import mesh  # noqa: F401
+from marl_traffic_intersection_tpu_torch import dryrun  # noqa: F401
+from marl_traffic_intersection_tpu_torch.models import tp  # noqa: F401
 from marl_traffic_intersection_tpu_torch.utils.checkpoint import load_policy, load_sac
 from marl_traffic_intersection_tpu_torch.core import npc  # noqa: F401
 from marl_traffic_intersection_tpu_torch.envs.normalize import RewardNormVecEnv

@@ -168,3 +168,34 @@ def test_profile_flag_traces_the_last_update(tmp_path, capsys):
     assert all(ln["rollout_s"] > 0 and ln["update_s"] > 0 for ln in logs)
     assert profs[0]["window_ms_per_step"] > 0 and profs[0]["kernel_launches_per_step"] == 0
     assert trace.stat().st_size > 0
+
+
+def test_distributed_needs_torchrun_and_tp_needs_distributed(monkeypatch):
+    """--distributed without torchrun's environment raises, naming torchrun,
+    as --tp 2 without --distributed does; neither falls back to one process."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        train.main(SMALL + ["--updates", "1", "--distributed"])
+    with pytest.raises(ValueError, match="torchrun"):
+        train.main(SMALL + ["--updates", "1", "--tp", "2"])
+
+
+def test_torchrun_two_processes_tp2_logs_from_rank_0_only():
+    """torchrun --nproc_per_node 2 ... --distributed --device cpu --tp 2: the
+    model split over 2 gloo ranks; one JSON line an update, finite losses."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "marl_traffic_intersection_tpu_torch.train", "--distributed", "--tp", "2",
+           *SMALL, "--num-envs", "8", "--updates", "2"]
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=240,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    logs = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+    assert [ln["update"] for ln in logs] == [0, 1]
+    assert all(torch.isfinite(torch.tensor([ln[k] for k in ("pg_loss", "v_loss", "entropy")])).all()
+               for ln in logs)
+    assert "mesh={'data': 1, 'model': 2}" in r.stdout
