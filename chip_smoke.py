@@ -154,15 +154,18 @@ Phases, one line each; any failure exits nonzero:
               return bit-equal, CEM's mean and first action within CEM_TOL
  13. distributed  multi-process training (parallel/mesh.py): train
               --distributed under torchrun --nproc_per_node 1 (NCCL, world
-              1) at 4096 x 4, rollout 64, bf16 MLP, 3 updates (the last
+              1) at 4096 x 4, rollout 64, bf16 MLP, 6 updates (the last
               profiled), then the same command in one process (each a child
               process running this script with --train-child): finite
-              losses, 48 optimizer steps,
-              K1 launched 64 x 3 times and every libm kernel at least once
+              losses, 96 optimizer steps,
+              K1 launched 64 x 6 times and every libm kernel at least once
               (the child's launch counters), each on its last operands at
-              each shape bit-equal to its plain version; env-steps/s and the
-              rollout/update split of each run's second update, and the device
-              busy share, launches and top kernels of its third; one float32
+              each shape bit-equal to its plain version, and no
+              torch.distributed collective in any update (the child's
+              census: none runs over an axis of one rank); env-steps/s and
+              the median and range of the rollout/update split of updates
+              1-4 of each run, and the device busy share, launches and top
+              kernels of its last; one float32
               update of a
               fixed 64 x 4 x 16 CPU trajectory through the distributed
               learner at world 1 (NCCL, in this process) and the plain
@@ -171,7 +174,8 @@ Phases, one line each; any failure exits nonzero:
               dryrun_multichip(1, "cuda") (every family's sharded train step
               over NCCL, and the traffic families); dryrun_multichip(2,
               "cuda", backend="gloo"), two ranks on the one card at dp 2 and
-              tp 2
+              tp 2; last, the bench's JSON line at BENCH_REPEATS=2 (4096 x 4):
+              vs_baseline over the pinned reference rate, 3004.4
 Then one JSON line of every kernel's numbers, the card line, and last the
 result line {"ok": true, "device": {...}}.
 
@@ -201,7 +205,7 @@ their reset's observation), "launches_sac_train" those of train_sac at
 "launches_traffic_full" those of the 200 exact steps at the full NPC width
 ("launches_traffic" are the narrowed run's), and "launches_plan_mpc" and
 "launches_plan_cem" those of one random-shooting and one CEM plan,
-"launches_distributed" those of the first train --distributed run's 3
+"launches_distributed" those of the first train --distributed run's 6
 updates at 4096 x 4. K1's
 "launches_traffic_by_m" and "launches_traffic_density10_by_m" count the
 narrowed run's launches at density 1 and 10 by obstacle count M, and its
@@ -226,6 +230,7 @@ import threading
 import time
 import types
 import urllib.request
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2175,25 +2180,44 @@ def planning_phase(dev, card, kernels) -> int:
 def train_child(argv) -> int:
     """``train.main(argv)`` (under torchrun for --distributed) with K1's and
     the libm kernels' launches counted and each kernel held against its plain
-    version on its last operands at each shape, as the train phase does;
-    rank 0 prints one JSON line ``{"child": ...}``. 1 if a kernel disagrees
-    or never launched."""
+    version on its last operands at each shape, as the train phase does, and
+    the torch.distributed collectives of each update counted (from one
+    update's start to the next's; the last to the run's end, its checkpoint
+    included); rank 0 prints one JSON line ``{"child": ...}``. 1 if a kernel
+    disagrees or never launched."""
     from marl_traffic_intersection_tpu_torch import train
     from marl_traffic_intersection_tpu_torch.ops import libm, native
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOLearner
+    from marl_traffic_intersection_tpu_torch.utils.profiling import collective_census
 
     native.reset_launches()
-    with k1_counted() as rec:
+    starts, train_step = [], PPOLearner.train_step
+
+    def counted_step(self, *args, **kw):
+        starts.append(len(calls))
+        return train_step(self, *args, **kw)
+
+    with k1_counted() as rec, collective_census() as calls, \
+            mock.patch.object(PPOLearner, "train_step", counted_step):
         train.main(argv)
     launches = dict(native.LAUNCHES)        # before the comparisons launch again
+    per_update = [b - a for a, b in zip(starts, starts[1:] + [len(calls)])]
     names = ["lidar_scan"] + [n for n in LIBM if libm.KERNEL_OF.get(n, n) == n]
     held, bad = held_to_plain(rec, dict.fromkeys(names))
     if int(os.environ.get("RANK", "0")) == 0:
-        print(json.dumps({"child": {"launches": launches, "held": held, "bad": bad}}),
-              flush=True)
+        print(json.dumps({"child": {"launches": launches, "held": held, "bad": bad,
+                                    "collectives": calls[:8], "collectives_total": len(calls),
+                                    "collectives_per_update": per_update}}), flush=True)
     return 1 if bad else 0
 
 
+def spread(xs) -> dict:
+    """The median and range of a few timings."""
+    return {"median": float(np.median(xs)), "min": min(xs), "max": max(xs), "all": list(xs)}
+
+
 DIST_PARAM_TOL, DIST_MOMENT_TOL = 1e-5, 1e-4
+DIST_UPDATES = 6
 
 
 def distributed_phase(dev, card, kernels) -> int:
@@ -2208,8 +2232,10 @@ def distributed_phase(dev, card, kernels) -> int:
     from marl_traffic_intersection_tpu_torch.utils.checkpoint import restore_checkpoint
 
     # (a) train --distributed at full width over NCCL (world 1), in turns with
-    # the same command in one process
+    # the same command in one process: 6 updates, the first the warm-up,
+    # updates 1-4 timed, the last profiled
     B, N, T = TRAIN_B, TRAIN_N, TRAIN_T
+    U = DIST_UPDATES
     root = os.path.dirname(os.path.abspath(__file__))
     torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                 "--nproc_per_node", "1"]
@@ -2218,7 +2244,7 @@ def distributed_phase(dev, card, kernels) -> int:
         for i, distributed in enumerate((True, False)):
             ck = os.path.join(tmp, f"run{i}")
             argv = ["--num-envs", str(B), "--agents", str(N), "--rollout-len", str(T),
-                    "--updates", "3", "--log-every", "1", "--checkpoint", ck,
+                    "--updates", str(U), "--log-every", "1", "--checkpoint", ck,
                     "--profile", os.path.join(tmp, f"trace{i}.json.gz")]
             cmd = (torchrun if distributed else [sys.executable]) + [
                 os.path.abspath(__file__), "--train-child", *argv,
@@ -2237,12 +2263,19 @@ def distributed_phase(dev, card, kernels) -> int:
                 return 1
             launches, saved = child["launches"], restore_checkpoint(ck)
             missing = [k for k in kernels if launches.get(k, 0) == 0]
-            if (len(logs) != 3 or not losses_finite(logs) or saved["update_count"] != 48
-                    or launches.get("lidar_scan", 0) != 3 * T or missing or child["bad"]):
+            steps = 16 * U
+            if (len(logs) != U or not losses_finite(logs) or saved["update_count"] != steps
+                    or launches.get("lidar_scan", 0) != U * T or missing or child["bad"]):
                 phase("distributed", f"FAIL: {name}: {len(logs)} log lines, losses finite "
                                      f"{losses_finite(logs)}, update_count "
-                                     f"{saved['update_count']} (want 48), launches {launches}, "
-                                     f"never launched {missing}, {child['bad']}")
+                                     f"{saved['update_count']} (want {steps}), launches "
+                                     f"{launches}, never launched {missing}, {child['bad']}")
+                return 1
+            per_update = child["collectives_per_update"]
+            if len(per_update) != U or any(per_update):
+                phase("distributed", f"FAIL: {name}: collectives per update {per_update} "
+                                     f"(want {U} updates of 0: no collective over an axis of "
+                                     f"one rank), the first {child['collectives']}")
                 return 1
             if i == 0:
                 for k in kernels:
@@ -2250,23 +2283,32 @@ def distributed_phase(dev, card, kernels) -> int:
                 mesh_line = next((ln for ln in r.stdout.splitlines() if ln.startswith("ranks=")),
                                  "")
                 phase("distributed", f"train --distributed under torchrun, {B}x{N}, rollout "
-                                     f"{T}, 3 updates ({mesh_line}): 48 optimizer steps, finite "
-                                     f"losses, launches in the child {launches}; the kernels on "
-                                     f"their last operands bit-equal to their plain versions: "
-                                     f"{child['held']}")
+                                     f"{T}, {U} updates ({mesh_line}): {steps} optimizer steps, "
+                                     f"finite losses, launches in the child {launches}; the "
+                                     f"kernels on their last operands bit-equal to their plain "
+                                     f"versions: {child['held']}; collectives per update "
+                                     f"{per_update}, {child['collectives_total']} in the whole "
+                                     f"run (census of torch.distributed's calls)")
             top = [(k["name"][:50], round(k["ms_per_step"], 3), k["launches_per_step"])
                    for k in prof.get("top_kernels", [])]
+            timed = logs[1:U - 1]
             timing[name].append(dict(
-                wall_s=round(secs, 3), env_steps_per_s=logs[1]["env_steps_per_s"],
-                rollout_s=logs[1]["rollout_s"], update_s=logs[1]["update_s"],
+                wall_s=round(secs, 3), env_steps_per_s=[ln["env_steps_per_s"] for ln in timed],
+                rollout_s=spread([ln["rollout_s"] for ln in timed]),
+                update_s=spread([ln["update_s"] for ln in timed]),
+                collectives_per_update=per_update,
                 profiled_update=dict(
                     window_ms=round(prof.get("window_ms_per_step", 0), 1),
                     device_busy_ms=round(prof.get("device_busy_ms_per_step", 0), 1),
                     busy_share=round(prof.get("device_busy_share", 0), 4),
                     launches=prof.get("kernel_launches_per_step"), top_kernels=top)))
-    phase("distributed", f"in turns (distributed, then one process), 3 updates each: the "
-                         f"first the warm-up, the second timed, the third profiled: "
-                         f"{json.dumps(timing)}; card {card}")
+    launched = {k: v[0]["profiled_update"]["launches"] for k, v in timing.items()}
+    phase("distributed", f"in turns (distributed, then one process), {U} updates each: the "
+                         f"first the warm-up, updates 1-{U - 2} timed (median and range of "
+                         f"rollout_s and update_s), the last profiled: {json.dumps(timing)}; "
+                         f"launches per profiled update {launched} (distributed minus one "
+                         f"process: {launched['distributed'] - launched['one process']}); "
+                         f"card {card}")
 
     # (b) one float32 update of a fixed CPU trajectory through the distributed
     # learner at world 1 (NCCL) and the plain learner, both on the card
@@ -2341,6 +2383,24 @@ def distributed_phase(dev, card, kernels) -> int:
         return 1
     phase("distributed", f"dryrun_multichip(2, 'cuda', backend='gloo'), two ranks on cuda:0: "
                          f"{len(lines)} family steps ok (dp 2 and tp 2) in "
+                         f"{time.perf_counter() - t0:.1f} s")
+
+    # (e) the bench's line, at 2 repeats: vs_baseline over the pinned rate
+    # of 4 agents (BASELINE.json's measured_reference)
+    from marl_traffic_intersection_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, {"BENCH_REPEATS": "2"}):
+        lines = json_lines(lambda _: bench.main(), None, "distributed")
+    line, ref = (lines[0] if lines else {}), 3004.4
+    # value is rounded to 0.1 and vs_baseline taken from the unrounded median
+    if (line.get("baseline_ref_steps_per_s") != ref or not line.get("value", 0) > 0
+            or abs(line.get("vs_baseline", 0) - line["value"] / ref) > 0.0051
+            or not line.get("metric", "").endswith("lidar on), exact_trig")):
+        phase("distributed", f"FAIL: bench line {line}")
+        return 1
+    phase("distributed", f"bench (BENCH_REPEATS=2): {line['value']} env-steps/s, vs_baseline "
+                         f"{line['vs_baseline']} over the pinned {ref}, in "
                          f"{time.perf_counter() - t0:.1f} s")
     return 0
 

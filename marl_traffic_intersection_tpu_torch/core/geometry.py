@@ -4,6 +4,12 @@ Counterpart of marl_traffic_intersection_tpu/core/geometry.py: the analytic
 road shape of the reference (RoadGeometry.h:19-67) and the pixel-exact
 yellow-line mask (LineMask.cpp:47-72), as elementwise torch functions. Every
 square is rounded before its sum, as in the reference build (no FMA).
+
+The reference's pixel RoadMask (``road_obstacle_mask``, ``is_obstacle_pixel``)
+and the rasterized LineMask grid (``rasterize_line_mask``) are host helpers
+kept for parity and debug pictures: the reference never calls
+``RoadMask::is_obstacle`` (SURVEY.md section 2, #5), and the analytic
+``is_on_road`` drives the lidar and the collisions here as there.
 """
 from __future__ import annotations
 
@@ -76,3 +82,56 @@ def is_line_pixel(xi: torch.Tensor, yi: torch.Tensor, num_lanes: int = 3) -> tor
     hband = ((yi >= cy - 3) & (yi <= cy - 1)) | ((yi >= cy + 1) & (yi <= cy + 3))
     hspan = (xi <= cx - stop) | (xi >= cx + stop)
     return in_bounds & ((vband & vspan) | (hband & hspan))
+
+
+def _mask_extent(num_lanes: int):
+    """The RoadMask's centre, road half-width and corner square, in pixels."""
+    rw, cr = int(round(num_lanes * LANE_WIDTH_PX)), int(round(CORNER_RADIUS))
+    return WIDTH // 2, HEIGHT // 2, rw, cr
+
+
+def road_obstacle_mask(num_lanes: int = 3) -> np.ndarray:
+    """The reference RoadMask's pixel grid (RoadMask.cpp:43-71), 1 =
+    obstacle (grass), 0 = road: the road cross and the four corner squares
+    cut out of a full grid, the corner grass circles not put back (the
+    reference's comment at RoadMask.cpp:64-70)."""
+    grid = np.ones((HEIGHT, WIDTH), dtype=np.uint8)
+    cx, cy, rw, cr = _mask_extent(num_lanes)
+    grid[:, cx - rw:cx + rw] = 0
+    grid[cy - rw:cy + rw, :] = 0
+    for x0, y0 in ((cx - rw - cr, cy - rw - cr), (cx + rw, cy - rw - cr),
+                   (cx - rw - cr, cy + rw), (cx + rw, cy + rw)):
+        grid[max(0, y0):y0 + cr, max(0, x0):x0 + cr] = 0
+    return grid
+
+
+def is_obstacle_pixel(xi: torch.Tensor, yi: torch.Tensor, num_lanes: int = 3) -> torch.Tensor:
+    """``RoadMask::is_obstacle`` (RoadMask.h:15-18) on integer coords: False
+    out of bounds (a ray stops there, it does not hit), else the complement
+    of the road cross and the corner squares of ``road_obstacle_mask``."""
+    cx, cy, rw, cr = _mask_extent(num_lanes)
+    in_bounds = (xi >= 0) & (xi < WIDTH) & (yi >= 0) & (yi < HEIGHT)
+    in_cross = ((xi >= cx - rw) & (xi < cx + rw)) | ((yi >= cy - rw) & (yi < cy + rw))
+    in_x = ((xi >= cx - rw - cr) & (xi < cx - rw)) | ((xi >= cx + rw) & (xi < cx + rw + cr))
+    in_y = ((yi >= cy - rw - cr) & (yi < cy - rw)) | ((yi >= cy + rw) & (yi < cy + rw + cr))
+    return in_bounds & ~(in_cross | (in_x & in_y))
+
+
+def rasterize_line_mask(num_lanes: int = 3) -> np.ndarray:
+    """The reference LineMask grid drawn pixel by pixel (LineMask.cpp:14-72),
+    1 = yellow line: thickness-2 segments (one pixel either side) at cx±2
+    and cy±2, from the screen's edges to ``rw + cr`` from the centre."""
+    grid = np.zeros((HEIGHT, WIDTH), dtype=np.uint8)
+    cx, cy = WIDTH // 2, HEIGHT // 2
+    stop = int(num_lanes * int(LANE_WIDTH_PX)) + int(CORNER_RADIUS)
+
+    def span(a, b, n):                   # the segment's pixels on an axis of n
+        return slice(max(0, min(a, b)), min(n, max(a, b) + 1))
+
+    for c in (cx - 2, cx + 2):
+        for ends in ((0, cy - stop), (HEIGHT, cy + stop)):
+            grid[span(*ends, HEIGHT), max(0, c - 1):c + 2] = 1
+    for c in (cy - 2, cy + 2):
+        for ends in ((0, cx - stop), (WIDTH, cx + stop)):
+            grid[max(0, c - 1):c + 2, span(*ends, WIDTH)] = 1
+    return grid

@@ -160,7 +160,10 @@ def shard_batch_tree(mesh: DeviceMesh, tree):
 
 def _gather(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order (bools
-    travel as bytes, which every backend carries)."""
+    travel as bytes, which every backend carries); ``x`` itself on an axis
+    of one rank."""
+    if axis.size == 1:
+        return x
     src = x.to(torch.uint8) if x.dtype == torch.bool else x
     parts = [torch.empty_like(src) for _ in range(axis.size)]
     dist.all_gather(parts, src.contiguous(), group=axis.group)
@@ -176,13 +179,18 @@ def gather_batch_tree(mesh: DeviceMesh, tree):
 
 
 def axis_sum_(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """``x`` summed over the axis' ranks, in place."""
-    dist.all_reduce(x, group=axis.group)
+    """``x`` summed over the axis' ranks, in place; no collective on an axis
+    of one rank (XLA drops a psum over a size-1 axis, too)."""
+    if axis.size > 1:
+        dist.all_reduce(x, group=axis.group)
     return x
 
 
 def axis_mean(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """The mean of ``x`` (in float32) over the axis' ranks, on every rank."""
+    """The mean of ``x`` (in float32) over the axis' ranks, on every rank;
+    ``x`` in float32 on an axis of one rank."""
+    if axis.size == 1:
+        return x.float()
     return axis_sum_(x.float().clone(), axis) / axis.size
 
 
@@ -355,9 +363,7 @@ def global_grad_norm(params: Sequence[torch.Tensor], model: Axis) -> torch.Tenso
                  if getattr(p, "tp_dim", None) is None), zero)
     split = sum(((p.grad * p.grad).sum() for p in params
                  if getattr(p, "tp_dim", None) is not None), zero)
-    if model.size > 1:
-        axis_sum_(split, model)
-    return torch.sqrt(whole + split)
+    return torch.sqrt(whole + axis_sum_(split, model))
 
 
 def average_gradients_(params: Sequence[torch.Tensor], data: Axis) -> None:

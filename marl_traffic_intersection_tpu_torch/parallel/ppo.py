@@ -46,6 +46,10 @@ of float32 sums:
     on the whole, elementwise;
   - metrics stay per rank until ``read_metrics(metrics, mesh)`` averages
     them over the data ranks, one all-reduce per log point.
+
+No collective runs over an axis of one rank (parallel/mesh.py), so at one
+data rank the advantage statistics, the gradients and the metrics take the
+single-process path, as XLA drops a psum over a size-1 axis.
 """
 from __future__ import annotations
 
@@ -225,8 +229,9 @@ class PPOLearner:
 
     def _adv_stats(self, adv: torch.Tensor):
         """The minibatch's mean and population std of the advantages; on a
-        mesh, the global minibatch's, from all-reduced sums."""
-        if self.mesh is None:
+        mesh of more than one data rank, the global minibatch's, from
+        all-reduced sums."""
+        if self.mesh is None or self.data_axis.size == 1:
             return adv.mean(), adv.std(correction=0)
         count = adv.numel() * self.data_axis.size
         mean = axis_sum_(adv.sum(), self.data_axis) / count
@@ -259,10 +264,11 @@ class PPOLearner:
             ts.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             grads = [p.grad for p in params]
-            if self.mesh is None:
-                clip_by_global_norm_(grads, cfg.max_grad_norm)
-            else:
+            if self.mesh is not None:
                 average_gradients_(params, self.data_axis)
+            if self.mesh is None or self.model_axis.size == 1:
+                clip_by_global_norm_(grads, cfg.max_grad_norm)
+            else:       # the TP-aware norm, where the model axis splits parameters
                 clip_by_global_norm_(grads, cfg.max_grad_norm,
                                      global_grad_norm(params, self.model_axis))
             ts.optimizer.step()
@@ -306,7 +312,8 @@ class PPOLearner:
 
 def read_metrics(metrics: Dict[str, torch.Tensor], mesh=None) -> Dict[str, float]:
     """The metrics as Python floats, with one copy from the device; given
-    the learner's mesh, their means over the data ranks (one all-reduce)."""
+    the learner's mesh of more than one data rank, their means over the data
+    ranks (one all-reduce)."""
     values = torch.stack([v.float() for v in metrics.values()])
     if mesh is not None:
         values = axis_mean(values, data_axis(mesh))

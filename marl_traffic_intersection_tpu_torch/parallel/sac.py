@@ -40,7 +40,8 @@ JAX package's ``jit_train_step(mesh)`` does:
     the rank holding ``env``;
   - every rank draws the same global sample indices; each reads the rows it
     holds and one all-gather over the data ranks assembles the batch, which
-    is then bit-equal to the single-process ring's sample at those indices;
+    is then bit-equal to the single-process ring's sample at those indices
+    (at one data rank the ring is whole and is indexed as in one process);
   - the actor is split over the model axis by ``model_kind``'s rule and the
     twin critic and its target by ``sac_q``. Every data rank holds the same
     batch, so their gradients are already equal and are not averaged.
@@ -197,7 +198,7 @@ class SACLearner:
     def _sample(self, buf: ReplayBuffer, n: int):
         idx = self.index_fn(n, buf.size)
         fields = (buf.obs, buf.action, buf.reward, buf.next_obs, buf.done)
-        if self.mesh is None:
+        if self.mesh is None or self.data_axis.size == 1:
             return tuple(x[idx] for x in fields)
         # the rank holding global row idx, and that row's place in its ring
         slot, within = idx // self.chunk, idx % self.chunk

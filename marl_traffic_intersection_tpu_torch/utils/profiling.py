@@ -5,7 +5,9 @@ Counterpart of marl_traffic_intersection_tpu/utils/profiling.py:
 first, warm-up tick; ``trace_profile`` records a block with torch.profiler
 (host and, where there is a card, device activity) and can write a Chrome
 trace for chrome://tracing or Perfetto; ``profile_steps`` sums such a
-record into the device's busy share and its top kernels.
+record into the device's busy share and its top kernels;
+``collective_census`` lists the torch.distributed collectives a block
+issues.
 """
 from __future__ import annotations
 
@@ -98,3 +100,44 @@ def profile_steps(step_fn, steps: int, trace: Optional[str] = None) -> dict:
         "top_kernels": [{"name": name[:80], "ms_per_step": us / steps / 1e3,
                          "launches_per_step": n / steps} for name, (n, us) in top],
     }
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "broadcast")   # all that the port calls
+
+
+def _elements(out) -> int:
+    """The elements a collective's call delivers to this rank, from its first
+    argument: the whole of an all-reduce's or a broadcast's tensor, every
+    part of a gather's output list."""
+    if isinstance(out, (list, tuple)):
+        return sum(t.numel() for t in out)
+    return out.numel()
+
+
+@contextlib.contextmanager
+def collective_census():
+    """Count the torch.distributed collectives issued inside the block:
+    yields a list that gains ``(name, elements, ranks)`` per call (the
+    elements delivered to this rank, the size of the call's group). It
+    wraps the attributes of ``torch.distributed``, so it sees a call only
+    where the call site looks the function up as ``dist.<name>`` when it
+    runs; every call site of the port does, and
+    tests/test_torch_scaling.py holds the port's sources to that."""
+    import torch.distributed as dist
+
+    calls = []
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls.append((name, _elements(args[0]), dist.get_world_size(kw.get("group"))))
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from marl_traffic_intersection_tpu_torch.core.env import EnvConfig, IntersectionEnv
 from marl_traffic_intersection_tpu_torch.envs.vector import VectorEnv
@@ -20,6 +21,7 @@ from marl_traffic_intersection_tpu_torch.parallel.mesh import (
 from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner, read_metrics
 from marl_traffic_intersection_tpu_torch.parallel.recurrent_ppo import RecurrentPPOLearner
 from marl_traffic_intersection_tpu_torch.parallel.sac import SACConfig, SACLearner
+from marl_traffic_intersection_tpu_torch.utils.profiling import collective_census
 
 F32 = dict(compute_dtype=torch.float32)
 
@@ -204,3 +206,80 @@ def tp_forwards(dev, out: str, weights: str) -> None:
                              "data": ranks}
     if dist.get_rank() == 0:
         torch.save(results, out)
+
+
+# ------------------------------------------------------------------ census
+ENVS_PER_RANK = 16
+CENSUS_PPO = PPOConfig(rollout_len=8)              # 4 epochs x 4 minibatches
+CENSUS_SAC = SACConfig(batch_size=32, buffer_capacity=512, warmup=16, steps_per_call=2)
+
+
+class OpCount(TorchDispatchMode):
+    """Counts the aten ops dispatched inside the block."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def census(dev, out: str) -> None:
+    """The collectives each rank issues (utils/profiling.py::
+    collective_census) in an env step with and without traffic on a (world,
+    1) mesh, ENVS_PER_RANK envs a rank, with the aten ops of the no-traffic
+    step; in one PPO train step (CENSUS_PPO, the MLP) on every (dp, tp) mesh
+    of the world with tp <= 2, with the layers the model split tagged; in
+    one SAC train call (CENSUS_SAC) at (world, 1); and in ``read_metrics``.
+    Rank 0 writes every rank's lists."""
+    world = dist.get_world_size()
+    meshes = {tp: make_mesh(world // tp, tp) for tp in (1, 2) if world % tp == 0}
+    res = {"world": world}
+    with collective_census() as calls:
+        for traffic in (False, True):
+            cfg = EnvConfig(num_agents=2, max_steps=10 ** 9, traffic_flow=traffic,
+                            traffic_density=1.0)
+            venv = VectorEnv(IntersectionEnv(cfg, device=dev), ENVS_PER_RANK * world,
+                             seed=0).with_mesh(meshes[1])
+            state, _ = venv.reset()
+            zeros = torch.zeros((ENVS_PER_RANK, 2, 2))
+            n0, ops = len(calls), []
+            for _ in range(3):
+                with OpCount() as count:
+                    state, step_out = venv.step(state, zeros)
+                ops.append(count.n)
+            res[f"env traffic={traffic}"] = {"calls": calls[n0:], "ops": ops}
+
+        for tp, mesh in meshes.items():
+            dp = world // tp
+            venv = VectorEnv(IntersectionEnv(EnvConfig(num_agents=2), device=dev),
+                             ENVS_PER_RANK * dp, seed=3)
+            lrn = PPOLearner(venv, make_model("mlp", seed=5, **F32), CENSUS_PPO, seed=4)
+            ts, carry = lrn.init(), venv.reset()
+            step, shard_ts, shard_env = lrn.distributed(mesh, "mlp")
+            ts = shard_ts(ts)
+            roles = [m.tp_role.kind for m in ts.model.modules() if hasattr(m, "tp_role")]
+            n0 = len(calls)
+            ts, *_, metrics = step(ts, *shard_env(*carry))
+            n1 = len(calls)
+            read_metrics(metrics, mesh)
+            res[f"ppo dp={dp} tp={tp}"] = {"calls": calls[n0:n1], "read_metrics": calls[n1:],
+                                           "roles": roles,
+                                           "params": sum(p.numel() for p in ts.model.parameters())}
+
+        venv = VectorEnv(IntersectionEnv(EnvConfig(num_agents=2), device=dev),
+                         ENVS_PER_RANK * world, seed=3)
+        lrn = SACLearner(venv, CENSUS_SAC, seed=4)
+        step, shard_ts, shard_env = lrn.distributed(meshes[1])
+        ts = shard_ts(lrn.init())
+        n0 = len(calls)
+        ts, *_, metrics = step(ts, *shard_env(*venv.reset()))
+        n1 = len(calls)
+        read_metrics(metrics, meshes[1])
+        res["sac"] = {"calls": calls[n0:n1], "read_metrics": calls[n1:]}
+    ranks = [None] * world
+    dist.all_gather_object(ranks, res)
+    if dist.get_rank() == 0:
+        torch.save(ranks, out)
