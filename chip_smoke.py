@@ -39,6 +39,26 @@ Phases, one line each; any failure exits nonzero:
               versions; then 64 envs x 100
               steps on the card and on the CPU with the same resets and
               actions, bit-equal
+  5b. graphs the counterpart of jax.jit (utils/graphs.py): VectorEnv.jit_step()
+              against step at 4096 x 4, 200 steps in lockstep with seeded
+              actions and episodes of 50 steps, state, obs, reward, status
+              and done bit-equal at every step; then blocks of 200 eager and
+              graphed steps in turns (zero actions): env-steps/s, device busy
+              share, kernels per step, the capture time and our kernels'
+              launches per replay, K1 launched 200 times in the first
+              graphed block and every kernel at least once, K1 and the libm
+              kernels on the graph's operands (recorded while capturing)
+              bit-equal to their plain versions, each kernel's device time
+              inside a replay; last, PPO at 4096 x 4, rollout 64, float32
+              MLP: 2 graphed train steps (jit_train_step) against 2 eager ones
+              with capturable Adam, trajectories, observations, metrics,
+              parameters, Adam's moments and the final env state bit-equal,
+              and the first graphed update against train's eager step (the
+              host's Adam): the first rollout bit-equal, parameters within
+              1e-5 and Adam's moments within 1e-4 of their largest, the
+              update moving the parameters more than ten times that;
+              rollout_s and update_s of each and the busy share of a third
+              update, the graphs' capture times and launches per replay
   6. train    the train entry point (PPO) at 4096 x 4, rollout 64, 4 epochs x
               4 minibatches, bf16 MLP: 3 updates with a checkpoint, then one
               more by auto-resume; finite losses, 48 optimizer steps, K1
@@ -194,7 +214,10 @@ of atan2f_diff and hypotf_diff (on signed-zero operands that make the
 subtractions exact), so their numbers are in those rows, under "atan2f"
 and "hypotf" and as the "function" of a shape's entry, and their launches
 in those rows' counts. "launches" counts the main
-phase's launches, "launches_train" those of the train phase's 3 updates,
+phase's launches, "launches_graphed" those of phase 5b's first block of
+200 graphed steps, "launches_per_replay" a graphed step's launches of the
+kernel per replay and "ms_in_replay" its device time per launch inside
+the replays, "launches_train" those of the train phase's 3 updates,
 "launches_traffic" those of the traffic phase's 200 narrowed exact steps,
 "launches_eval_config4" those of 200 config-4 evaluate steps with the GRU
 policy, "launches_gru_train" those of the 3 GRU updates at 4096 x 4 (and
@@ -836,7 +859,8 @@ def main() -> int:
         return 1
     phase("main", f"64x4, 100 steps: card run bit-equal to the CPU run ({len(runs['cpu'])} tensors)")
 
-    for name, fn in (("train", train_phase), ("traffic", traffic_phase),
+    for name, fn in (("graphs", graphs_phase), ("train", train_phase),
+                     ("traffic", traffic_phase),
                      ("policies", policies_phase), ("learners", learners_phase),
                      ("resume", resume_phase), ("gym", gym_phase),
                      ("planning", planning_phase), ("distributed", distributed_phase)):
@@ -850,6 +874,260 @@ def main() -> int:
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
+
+
+GRAPH_STEPS = 200
+# the kernels' names in the profiler's records
+PROFILED_NAME = {"lidar_scan": "lidar_kernel", "sincosf": "sincosf_kernel", "tanf": "TanF",
+                 "atan2f_diff": "Atan2FDiff", "hypotf_diff": "HypotFDiff"}
+
+
+def leaf_mismatches(a, b) -> torch.Tensor:
+    """The count of elements in which two nests of tensors differ, by bit
+    pattern, as a 0-d tensor on the card (no read)."""
+    from marl_traffic_intersection_tpu_torch.utils.graphs import leaves
+
+    out = torch.zeros((), dtype=torch.long, device="cuda")
+    for x, y in zip(leaves(a), leaves(b)):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        out += (x != y).sum()
+    return out
+
+
+def graphs_phase(dev, card, kernels) -> int:
+    """The graphed main path (utils/graphs.py) against the eager one; 1 on
+    failure. (a) VectorEnv.jit_step() and step at 4096 x 4, 200 steps in
+    lockstep with episodes of 50 steps, the same routes and seeded actions:
+    state, obs, reward and status bit-equal at every step. (b) Eager and
+    graphed steps in turns (zero actions, as the bench): env-steps/s, the
+    device busy share, the capture time and the launches per replay; K1
+    launched once per graphed step, and K1 and every libm kernel on the
+    graph's operands (the recorder active during the capture keeps them)
+    bit-equal to their plain versions. (c) PPO at 4096 x 4, rollout 64, bf16
+    MLP: two graphed train steps against two eager ones with capturable Adam
+    from the same seeds, the trajectories, env states, observations, metrics,
+    parameters and moments bit-equal, and the first rollout bit-equal to
+    train's eager step's (the host's Adam); rollout_s and update_s and the
+    busy share of each. (d) At the float32 learner check's size (64 x 4,
+    rollout 16), the graphed update against train's eager one within its
+    tolerances, the update moving the parameters more than ten times them."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.models import make_model
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps, records
+
+    B, N = 4096, 4
+
+    def venv_of(max_steps):
+        return VectorEnv(IntersectionEnv(EnvConfig(num_agents=N, max_steps=max_steps),
+                                         device=dev), num_envs=B, seed=0)
+
+    # (a) lockstep, bit for bit at every step
+    ev, gv = venv_of(50), venv_of(50)
+    es, _ = ev.reset()
+    gs, _ = gv.reset()
+    gstep = gv.jit_step()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bad = torch.zeros((), dtype=torch.long, device=dev)
+    resets = torch.zeros((), dtype=torch.long, device=dev)
+    for _ in range(GRAPH_STEPS):
+        a = torch.rand((B, N, 2), generator=gen, device=dev) * 2 - 1
+        es, eo = ev.step(es, a)
+        gs, go = gstep(gs, a)
+        bad += leaf_mismatches((es, eo.obs, eo.reward, eo.status, eo.done),
+                               (gs, go.obs, go.reward, go.status, go.done))
+        resets += (eo.terminated | eo.truncated).sum()
+    bad, resets = int(bad), int(resets)
+    if bad or not resets:
+        phase("graphs", f"FAIL: graphed and eager steps differ in {bad} elements over "
+                        f"{GRAPH_STEPS} steps ({resets} resets)")
+        return 1
+    phase("graphs", f"{B}x{N}, {GRAPH_STEPS} steps with seeded actions, episodes of 50: the "
+                    f"graphed step (jit_step) bit-equal to the eager step at every step (state, "
+                    f"obs, reward, status, done); {resets} env resets")
+    del ev, gv, es, gs, eo, go, gstep
+
+    # (b) rates in turns, the graph's operands held to the plain versions
+    ev, gv = venv_of(2000), venv_of(2000)
+    es, _ = ev.reset()
+    gs, _ = gv.reset()
+    zeros = torch.zeros((B, N, 2), device=dev)
+    for _ in range(5):
+        es, eo = ev.step(es, zeros)
+    with k1_counted() as rec:           # the capture's operands stay referenced
+        gstep = gv.jit_step()
+        for _ in range(5):              # the first call warms up, the second captures
+            gs, go = gstep(gs, zeros)
+    graph = gstep.graphs[False]
+
+    def block(graphed):
+        nonlocal es, gs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_STEPS):
+            if graphed:
+                gs, out = gstep(gs, zeros)
+            else:
+                es, out = ev.step(es, zeros)
+        torch.cuda.synchronize()
+        return B * GRAPH_STEPS / (time.perf_counter() - t0)
+
+    rates = {"eager": [], "graphed": []}
+    for graphed in (False, True, True, False):
+        first = graphed and not rates["graphed"]
+        if first:                       # the launch counters over the first graphed block
+            native.reset_launches()
+        rates["graphed" if graphed else "eager"].append(block(graphed))
+        if first:
+            launches = dict(native.LAUNCHES)
+    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    held, bad = held_to_plain(rec, kernels)
+    if launches.get("lidar_scan", 0) != GRAPH_STEPS or missing or bad:
+        phase("graphs", f"FAIL: in {GRAPH_STEPS} graphed steps K1 launched "
+                        f"{launches.get('lidar_scan', 0)} times, never launched {missing}; {bad}")
+        return 1
+    profs = {name: profile_steps(fn, 20) for name, fn in (
+        ("eager", lambda: ev.step(es, zeros)[1].obs.sum()),
+        ("graphed", lambda: gstep(gs, zeros)[1].obs.sum()))}
+    # each kernel's device time inside a replay, from a profile of 20 replays
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            gstep(gs, zeros)
+        torch.cuda.synchronize()
+    recs = records(prof)
+    for k, row in kernels.items():
+        hits = [(n, us) for name, (n, us) in recs.items() if PROFILED_NAME.get(k, k) in name]
+        n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        row["launches_graphed"] = launches[k]
+        row["launches_per_replay"] = graph.launches.get(k, 0)
+        row["ms_in_replay"] = us / n / 1e3 if n else None
+    phase("graphs", f"{B}x{N}, zero actions, {GRAPH_STEPS}-step blocks in turns (eager, "
+                    f"graphed, graphed, eager): env-steps/s eager {rates['eager']}, graphed "
+                    f"{rates['graphed']}; device busy per step eager "
+                    f"{profs['eager']['device_busy_ms_per_step']:.4f} of "
+                    f"{profs['eager']['window_ms_per_step']:.4f} ms "
+                    f"({profs['eager']['device_busy_share']:.4f}), graphed "
+                    f"{profs['graphed']['device_busy_ms_per_step']:.4f} of "
+                    f"{profs['graphed']['window_ms_per_step']:.4f} ms "
+                    f"({profs['graphed']['device_busy_share']:.4f}); kernels per step eager "
+                    f"{profs['eager']['kernel_launches_per_step']:.1f}, graphed "
+                    f"{profs['graphed']['kernel_launches_per_step']:.1f}; capture "
+                    f"{graph.capture_s:.3f} s; our kernels' launches per replay "
+                    f"{dict(graph.launches)}, device ms in a replay "
+                    f"{ {k: kernels[k]['ms_in_replay'] for k in kernels} }; launches in "
+                    f"{GRAPH_STEPS} graphed steps {launches}; the kernels on the graph's "
+                    f"operands bit-equal to their plain versions: {held}; card {card}")
+    del ev, gv, es, gs, eo, go, gstep, graph, rec
+    torch.cuda.empty_cache()
+
+    # (c) PPO at full width in bf16: graphed against eager capturable Adam,
+    # bit for bit, and the rates of train's eager step (the host's Adam)
+    runs = ppo_runs(dev, B, TRAIN_T, {}, ("host adam", "capturable adam", "graphed"))
+    g, c = runs["graphed"], runs["capturable adam"]
+    bad = sum(int(leaf_mismatches([g["trajs"][u], list(g["after"][u].values())],
+                                  [c["trajs"][u], list(c["after"][u].values())]))
+              for u in range(2))
+    bad_first = int(leaf_mismatches(g["trajs"][0], runs["host adam"]["trajs"][0]))
+    msg = (f"PPO {B}x{N}, rollout {TRAIN_T}, bf16 MLP: 2 graphed train steps against 2 eager "
+           f"ones with capturable Adam: {bad} elements differ (trajectories, env states, "
+           f"observations, metrics, parameters, Adam's moments); the first rollout against "
+           f"train's eager step (the host's Adam): {bad_first} elements differ")
+    if bad or bad_first:
+        phase("graphs", "FAIL: " + msg)
+        return 1
+    phase("graphs", msg)
+    phase("graphs", "PPO rollout_s/update_s by update: " + "; ".join(
+        f"{name} {[(round(s['rollout_s'], 4), round(s['update_s'], 4)) for s in r['splits']]}, "
+        f"a third update profiled: device busy {r['prof']['device_busy_ms_per_step']:.2f} of "
+        f"{r['prof']['window_ms_per_step']:.2f} ms ({r['prof']['device_busy_share']:.4f}), "
+        f"{r['prof']['kernel_launches_per_step']:.0f} kernels" for name, r in runs.items())
+        + "; graphs: " + ", ".join(f"{k} capture {v.capture_s:.3f} s, {v.replays} replays, "
+                                    f"our kernels per replay {dict(v.launches)}"
+                                    for k, v in g["graphs"].items()) + f"; card {card}")
+
+    # (d) the graphed update against train's eager one (the host's Adam) at
+    # the float32 learner check's size and tolerances: capturable Adam takes
+    # its bias corrections in float32 on the card, the host's in float64, and
+    # PPO's clipped objective carries such differences on through the
+    # minibatches (at 4096 x 4 x 64 on an H100: parameters 3.3e-6 apart and
+    # moments 4.0e-4 of their largest in float32, 1.9e-5 and 1.2e-2 in bf16)
+    PARAM_TOL, MOMENT_TOL = 1e-5, 1e-4
+    f32 = dict(compute_dtype=torch.float32)
+    runs = ppo_runs(dev, 64, 16, f32, ("host adam", "graphed"))
+    g, h = runs["graphed"], runs["host adam"]
+    bad_first = int(leaf_mismatches(g["trajs"][0], h["trajs"][0]))
+    gp, hp = g["after"][0]["params"], h["after"][0]["params"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(gp, hp))
+    mdiff = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for ga, ha in zip(g["after"][0]["moments"], h["after"][0]["moments"])
+                for a, b in zip(ga, ha))
+    init = [p.detach().to(dev) for p in make_model("mlp", seed=3, **f32).parameters()]
+    moved = max(float((a - b).abs().max()) for a, b in zip(hp, init))
+    msg = (f"PPO 64x{N}, rollout 16, float32 MLP: the graphed train step against train's eager "
+           f"one (the host's Adam): the rollout {bad_first} elements apart; after the update, "
+           f"parameters within {diff:.3g} (tolerance {PARAM_TOL}), Adam's moments within "
+           f"{mdiff:.3g} of their largest (tolerance {MOMENT_TOL}), the update moved the "
+           f"parameters up to {moved:.3g}")
+    if bad_first or not (diff <= PARAM_TOL and mdiff <= MOMENT_TOL and moved > 10 * PARAM_TOL):
+        phase("graphs", "FAIL: " + msg)
+        return 1
+    phase("graphs", msg)
+    return 0
+
+
+def ppo_runs(dev, B, T, model_kw, names) -> dict:
+    """PPO at B x 4, rollout T, from the same seeds, for each of ``names``:
+    "host adam" (train's eager step, 1 update), "capturable adam" (the eager
+    step with capturable Adam, 2 updates), "graphed" (jit_train_step, 2
+    updates); each then profiles one more update. Per name: the
+    trajectories, and after each update the env state, observation,
+    metrics, parameters and Adam's moments (copies), the splits, the
+    profile, and the graphed step's graphs."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.models import make_model
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner
+    from marl_traffic_intersection_tpu_torch.utils.graphs import capturable_, leaves
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
+
+    runs = {}
+    for name in names:
+        venv = VectorEnv(IntersectionEnv(EnvConfig(num_agents=4), device=dev), num_envs=B,
+                         seed=0)
+        lrn = PPOLearner(venv, make_model("mlp", seed=3, **model_kw),
+                         PPOConfig(rollout_len=T), seed=4)
+        ts = lrn.init()
+        capturable_(ts.optimizer, name != "host adam")
+        state, obs = venv.reset()
+        trajs, after, splits = [], [], []
+        if name == "graphed":
+            step = lrn.jit_train_step()
+        else:
+            step, rollout = lrn.train_step, lrn._rollout
+
+            def kept(*a, rollout=rollout, trajs=trajs):
+                out = rollout(*a)
+                trajs.append(out[2])
+                return out
+            lrn._rollout = kept
+        for _ in range(1 if name == "host adam" else 2):
+            split = {}
+            ts, state, obs, metrics = step(ts, state, obs, split)
+            if name == "graphed":
+                trajs.append(tuple(t.clone() for t in step.traj))
+            after.append(dict(
+                state=[t.clone() for t in leaves(state)], obs=obs.clone(),
+                metrics=torch.stack(list(metrics.values())),
+                params=[p.detach().clone() for p in ts.model.parameters()],
+                moments=[[ts.optimizer.state[p][m].clone() for m in ("exp_avg", "exp_avg_sq")]
+                         for p in ts.model.parameters()]))
+            splits.append(split)
+        prof = profile_steps(lambda: step(ts, state, obs), 1)
+        runs[name] = dict(trajs=trajs, after=after, splits=splits, prof=prof,
+                          graphs=step.graphs if name == "graphed" else None)
+        del lrn, ts, state, obs, step
+        torch.cuda.empty_cache()
+    return runs
 
 
 def json_lines(main, argv, tag):
@@ -2187,18 +2465,23 @@ def train_child(argv) -> int:
     disagrees or never launched."""
     from marl_traffic_intersection_tpu_torch import train
     from marl_traffic_intersection_tpu_torch.ops import libm, native
-    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOLearner
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOLearner, _GraphedTrainStep
     from marl_traffic_intersection_tpu_torch.utils.profiling import collective_census
 
     native.reset_launches()
-    starts, train_step = [], PPOLearner.train_step
+    starts = []
 
-    def counted_step(self, *args, **kw):
-        starts.append(len(calls))
-        return train_step(self, *args, **kw)
+    def counted(step):          # an update starts where the step is called
+        def call(self, *args, **kw):
+            starts.append(len(calls))
+            return step(self, *args, **kw)
+        return call
 
+    # one process on the card runs the graphed step, torchrun's world the eager one
     with k1_counted() as rec, collective_census() as calls, \
-            mock.patch.object(PPOLearner, "train_step", counted_step):
+            mock.patch.object(PPOLearner, "train_step", counted(PPOLearner.train_step)), \
+            mock.patch.object(_GraphedTrainStep, "__call__",
+                              counted(_GraphedTrainStep.__call__)):
         train.main(argv)
     launches = dict(native.LAUNCHES)        # before the comparisons launch again
     per_update = [b - a for a, b in zip(starts, starts[1:] + [len(calls)])]

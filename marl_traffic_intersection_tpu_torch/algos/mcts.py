@@ -31,8 +31,10 @@ sum. ``_fma`` does nearly the same (the product of two float32 values is
 exact in float64; the sum is rounded to float64, then to float32, which
 differs from one rounding only in rare ties), so the planned actions and
 returns are bit-equal to JAX's on the tested seeds. ``mpc_policy`` and
-``cem_policy`` return plain closures: PyTorch runs eagerly and needs no
-counterpart of ``jit``.
+``cem_policy`` return plain closures that plan eagerly, because each
+decision rebuilds its K copies of the state; the port's counterpart of
+``jit`` (utils/graphs.py, CUDA graphs of static buffers) graphs the env step
+and the PPO train step.
 """
 from __future__ import annotations
 

@@ -2,7 +2,10 @@
 
 The counterpart of the repo's bench.py: 4096 envs x 4 agents, lidar on,
 auto-reset, zero actions, and the observation of every step consumed (its
-sum is accumulated on the card), so nothing is skipped. The value is the
+sum is accumulated on the card), so nothing is skipped. As bench.py times a
+jitted scan of the step, this times ``VectorEnv.jit_step()``, the step
+replayed as a CUDA graph (utils/graphs.py); BENCH_MODE=traffic times the
+eager step, whose host reads keep it out of a graph. The value is the
 median of BENCH_REPEATS (default 5) timed blocks of BENCH_ITERS x
 BENCH_INNER steps, each block ended by ``torch.cuda.synchronize()``; the
 line also carries the per-block values, their spread, the card's name and
@@ -69,18 +72,19 @@ def bench(num_envs: int = 4096, num_agents: int = 4, iters: int = 5, inner: int 
                                     npc_mode=npc_mode, npc_cleanup=npc_cleanup),
                          device="cuda")
     venv = VectorEnv(env, num_envs=num_envs, seed=0)
+    step = venv.step if traffic else venv.jit_step()
     state, obs = venv.reset()
     actions = torch.zeros((num_envs, num_agents, 2), device=env.device)
     chk = torch.zeros((), device=env.device)
-    for _ in range(inner):                       # warm-up: builds and caches
-        state, out = venv.step(state, actions)
+    for _ in range(inner):          # warm-up: builds, caches and the graph's capture
+        state, out = step(state, actions)
         chk += out.obs.sum()
     torch.cuda.synchronize()
     vals = []
     for _ in range(repeats):
         t0 = time.perf_counter()
         for _ in range(iters * inner):
-            state, out = venv.step(state, actions)
+            state, out = step(state, actions)
             chk += out.obs.sum()
         torch.cuda.synchronize()
         vals.append(num_envs * iters * inner / (time.perf_counter() - t0))
@@ -88,7 +92,7 @@ def bench(num_envs: int = 4096, num_agents: int = 4, iters: int = 5, inner: int 
         raise RuntimeError("non-finite observations")
     prof = None
     if profile:
-        prof = profile_steps(lambda: venv.step(state, actions)[1].obs.sum(), inner)
+        prof = profile_steps(lambda: step(state, actions)[1].obs.sum(), inner)
     return vals, prof
 
 

@@ -60,8 +60,18 @@ class RewardNormVecEnv:
                          count=torch.zeros((b,), dtype=torch.int32, device=dev),
                          mean=torch.zeros((b,), **f32), m2=torch.zeros((b,), **f32)), obs
 
+    def draws(self, dt: float = DT_DEFAULT) -> tuple:
+        """The wrapped VectorEnv's draws of one step (VectorEnv.draws)."""
+        return self.venv.draws(dt)
+
     def step(self, state: NormState, actions: torch.Tensor, dt: float = DT_DEFAULT):
-        env_state, out = self.venv.step(state.env_state, actions, dt=dt)
+        return self.step_body(state, actions, self.draws(dt), dt)
+
+    def step_body(self, state: NormState, actions: torch.Tensor, draws: tuple,
+                  dt: float = DT_DEFAULT):
+        """``step`` with the step's random draws given (``draws``' result);
+        the normalisation reads nothing back to the host, so it graphs."""
+        env_state, out = self.venv.step_body(state.env_state, actions, draws, dt)
         reward = out.reward                                    # (B, N)
         n = reward.shape[-1]
 

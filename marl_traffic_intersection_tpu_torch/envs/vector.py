@@ -34,6 +34,12 @@ fresh pool is empty, so the observation of the merged state and
 counts these reads in ``host_reads`` and ``tier_reads``, and how often each
 width ran in ``step_width_<w>`` (w = max_npcs for the full pool).
 
+A step is ``draws`` (the random draws, eager) then ``step_body`` (the
+rest). ``jit_step`` is the JAX package's: on the card it replays a CUDA
+graph of ``step_body`` (utils/graphs.py) after the draws, bit-equal to
+``step``; the traffic step reads the device from the host and is not
+graphed (``graph_blocker``).
+
 ``with_mesh(mesh)`` (parallel/mesh.py) binds a copy to a device mesh: it
 steps this rank's ``num_envs // data ranks`` envs (``num_envs`` stays the
 global count) and shares the generator. Every draw that depends on the batch
@@ -157,6 +163,50 @@ class VectorEnv:
         stats[f"step_width_{w or self.env.config.max_npcs}"] += 1
         return w
 
+    def draws(self, dt: float = DT_DEFAULT) -> tuple:
+        """The random draws of one step of ``dt``, in the order ``step``
+        makes them: ``(spawn, routes)``, the NPC spawn draw (with traffic) and
+        the routes of a fresh episode for every env (with auto-reset; the
+        step keeps those of the envs whose episode ended); None where the
+        configuration makes no such draw."""
+        cfg, spawn, routes = self.env.config, None, None
+        if cfg.traffic_flow:
+            spawn = self.spawn_sampler(self.num_envs) if self.spawn_sampler else \
+                spawn_decision(self.generator, self.num_envs, self.env.traffic_ids.shape[0],
+                               cfg.traffic_density, dt)
+            spawn = tuple(x[self.rows] for x in spawn)
+        if self.auto_reset:
+            routes = self.route_sampler(self.num_envs)[self.rows]
+        return spawn, routes
+
+    def jit_step(self, dt: float = DT_DEFAULT, donate: bool = True):
+        """The counterpart of the JAX package's ``VectorEnv.jit_step``: a
+        callable ``(state, actions, final_obs=False)`` with ``step``'s
+        contract. On the card it replays a CUDA graph of ``step_body``
+        (utils/graphs.py), one for each ``final_obs``, after ``draws`` made
+        eagerly (the generator's stream and any injected sampler stay as
+        ``step`` uses them) and written into a static buffer. On the CPU it
+        runs ``draws`` and ``step_body`` eagerly, as ``jax.jit`` compiles
+        for the CPU there.
+
+        ``donate=True`` is the JAX donation contract: the returned state
+        lives in the graph's static buffers, so a state passed back in is the
+        graph's own input and is not copied (any other state is copied in),
+        and the caller must not reuse the state passed in. The returned
+        ``out`` stays valid until the next call. ``donate=False`` returns
+        clones of the state and the outputs.
+
+        With traffic it raises ValueError: the step reads the device from
+        the host, which a graph cannot replay (see ``graph_blocker``)."""
+        blocker = graph_blocker(self.env.config)
+        if blocker:
+            raise ValueError(f"VectorEnv.jit_step: {blocker}")
+        if self.env.device.type != "cuda":
+            def step(state, actions, final_obs: bool = False):
+                return self.step(state, actions, dt, final_obs)
+            return step
+        return _GraphedStep(self, dt, donate)
+
     def step(self, state: EnvState, actions: torch.Tensor, dt: float = DT_DEFAULT,
              final_obs: bool = False):
         """Batched step; actions (B, N, 2). Envs whose episode ended start a
@@ -164,13 +214,14 @@ class VectorEnv:
 
         The obs is built once, on the merged state. ``final_obs=True`` also
         returns the terminal observation of the stepped (pre-reset) state.
+        The step is ``draws`` then ``step_body``.
         """
-        cfg, spawn = self.env.config, None
-        if cfg.traffic_flow:
-            spawn = self.spawn_sampler(self.num_envs) if self.spawn_sampler else \
-                spawn_decision(self.generator, self.num_envs, self.env.traffic_ids.shape[0],
-                               cfg.traffic_density, dt)
-            spawn = tuple(x[self.rows] for x in spawn)
+        return self.step_body(state, actions, self.draws(dt), dt, final_obs)
+
+    def step_body(self, state: EnvState, actions: torch.Tensor, draws: tuple,
+                  dt: float = DT_DEFAULT, final_obs: bool = False):
+        """``step`` with its random draws given (``draws``' result)."""
+        spawn, routes = draws
         w = self._step_width(state.npc) if self.npc_widths else None
         # without auto-reset the observation is built inside the step, on the
         # narrowed pool
@@ -180,13 +231,13 @@ class VectorEnv:
         if not self.auto_reset:
             return new_state, out
         ep_done = out.terminated | out.truncated                     # (B,)
-        fresh = self.env.reset_state(self.route_sampler(self.num_envs)[self.rows])
+        fresh = self.env.reset_state(routes)
 
         def pick(a, b):
             return torch.where(ep_done.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
 
         npc = new_state.npc
-        if cfg.traffic_flow:
+        if self.env.config.traffic_flow:
             npc = type(npc)(*(pick(a, b) for a, b in zip(fresh.npc, npc)))
         merged = EnvState(
             ego=type(new_state.ego)(*(pick(a, b) for a, b in zip(fresh.ego, new_state.ego))),
@@ -198,3 +249,54 @@ class VectorEnv:
         if final_obs:
             return merged, out, self.env.observe(_narrow(new_state, w))
         return merged, out
+
+
+def graph_blocker(config) -> Optional[str]:
+    """Why a step of ``config`` cannot be captured in a CUDA graph, or None.
+    A graph replays device work only, and the traffic step reads the device
+    from the host: ``VectorEnv._step_width``'s ``.tolist()`` picks the NPC
+    width, and the exact NPC update's loops (core/npc.py, the cleanup and
+    collision loops of ``npc_traffic_update``) run until a device flag says
+    they are done."""
+    if config.traffic_flow:
+        return ("traffic_flow=True steps are not graphed: VectorEnv._step_width reads "
+                "the NPC pool's width from the device (.tolist()), and the exact NPC "
+                "update's cleanup and collision loops (core/npc.py) run as many rounds "
+                "as the device says; the traffic step stays eager")
+    return None
+
+
+class _GraphedStep:
+    """``VectorEnv.jit_step``'s callable on the card (see there). Its
+    methods import utils.graphs when they run: utils imports this module
+    (through utils/checkpoint.py)."""
+
+    def __init__(self, venv: VectorEnv, dt: float, donate: bool):
+        from ..utils.graphs import GraphPool
+
+        self.venv, self.dt, self.donate = venv, dt, donate
+        self.pool = GraphPool(venv.env.device)
+        self.graphs: dict = {}
+        self.state = self.actions = self.draws = None
+
+    def _body(self, final_obs: bool):
+        from ..utils.graphs import copy_tree_
+
+        new_state, *rest = self.venv.step_body(self.state, self.actions, self.draws, self.dt,
+                                               final_obs)
+        copy_tree_(self.state, new_state)
+        return rest
+
+    def __call__(self, state, actions, final_obs: bool = False):
+        from ..utils.graphs import Graph, clone_tree, stage
+
+        draws = self.venv.draws(self.dt)
+        self.state, self.actions = stage(self.state, state), stage(self.actions, actions)
+        self.draws = stage(self.draws, draws)
+        graph = self.graphs.get(final_obs)
+        if graph is None:
+            graph = self.graphs[final_obs] = Graph(lambda: self._body(final_obs), self.pool)
+        rest = graph()
+        if self.donate:
+            return (self.state, *rest)
+        return (clone_tree(self.state), *clone_tree(rest))

@@ -28,6 +28,11 @@ the JAX package:
 The trajectory buffers are allocated once per rollout at their full (T, ...)
 size and filled in place.
 
+``jit_train_step()`` is the JAX package's ``jit_train_step()`` without a
+mesh: on the card the rollout step, GAE and each minibatch update replay
+CUDA graphs (utils/graphs.py, ``_GraphedTrainStep``), the draws made
+eagerly as here; on the CPU it is ``train_step``.
+
 ``distributed(mesh, model_kind)`` runs the same step on a ``(data, model)``
 mesh (parallel/mesh.py), one process per rank, and returns ``(step,
 shard_ts, shard_env)`` as the JAX package's ``jit_train_step(mesh)`` does.
@@ -62,11 +67,14 @@ from torch import nn
 
 from ..core.constants import (STATUS_CRASH_CAR, STATUS_CRASH_LINE, STATUS_CRASH_WALL,
                               STATUS_SUCCESS)
+from ..envs.vector import graph_blocker
 from ..models.actor_critic import draw_noise, logp_and_entropy, sample_action
+from ..utils.graphs import Graph, GraphPool, capturable_, copy_tree_, leaves, stage
 from .mesh import (average_gradients_, axis_mean, axis_sum_, data_axis, global_grad_norm,
                    global_rows, model_axis, shard_batch_tree, shard_model_)
 
 LOSS_METRICS = ("pg_loss", "v_loss", "entropy", "approx_kl")
+TRAJ_METRICS = ("mean_reward", "mean_value", "success_rate", "crash_rate")
 
 
 @dataclass(frozen=True)
@@ -100,6 +108,15 @@ class Transition(NamedTuple):
     ep_done: torch.Tensor      # (T, B) episode boundary (terminated | truncated)
     agent_done: torch.Tensor   # (T, B, N) per-agent done (crash -> respawn, success)
     status: torch.Tensor       # (T, B, N) int32 STATUS_*
+
+
+def trajectory_metrics(traj) -> Dict[str, torch.Tensor]:
+    """The rollout's metrics of ``TRAJ_METRICS``, 0-d tensors on the device."""
+    st = traj.status
+    crash = (st == STATUS_CRASH_CAR) | (st == STATUS_CRASH_WALL) | (st == STATUS_CRASH_LINE)
+    return dict(mean_reward=traj.reward.mean(), mean_value=traj.value.mean(),
+                success_rate=(st == STATUS_SUCCESS).float().mean(),
+                crash_rate=crash.float().mean())
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
@@ -293,11 +310,7 @@ class PPOLearner:
         if split is not None:
             self._sync()
             split["update_s"] = time.perf_counter() - t1
-        st = traj.status
-        crash = (st == STATUS_CRASH_CAR) | (st == STATUS_CRASH_WALL) | (st == STATUS_CRASH_LINE)
-        metrics.update(mean_reward=traj.reward.mean(), mean_value=traj.value.mean(),
-                       success_rate=(st == STATUS_SUCCESS).float().mean(),
-                       crash_rate=crash.float().mean())
+        metrics.update(trajectory_metrics(traj))
         return ts, tuple(carry), metrics
 
     def train_step(self, ts: TrainState, env_state, obs: torch.Tensor,
@@ -308,6 +321,179 @@ class PPOLearner:
         their seconds there as ``rollout_s`` and ``update_s`` (GAE included)."""
         ts, (env_state, obs), metrics = self._train(ts, (env_state, obs), split)
         return ts, env_state, obs, metrics
+
+    def jit_train_step(self, mesh=None):
+        """The counterpart of the JAX package's ``jit_train_step()``:
+        ``step(ts, env_state, obs, split=None) -> (ts, env_state, obs,
+        metrics)``, ``train_step``'s contract. On the card the rollout, GAE
+        and each minibatch update replay CUDA graphs (``_GraphedTrainStep``);
+        on the CPU it is ``train_step``. A ``mesh`` raises: ``distributed()``
+        stays eager. With traffic it raises as ``VectorEnv.jit_step`` does.
+
+        The graphed step switches ``ts.optimizer`` to capturable Adam
+        (utils/graphs.py::capturable_), whose float32 bias corrections agree
+        with the eager Adam's to rounding, so the graphed update is held to
+        the eager one within a tolerance and not bit for bit; the rollout is
+        bit-equal."""
+        if mesh is not None or self.mesh is not None:
+            raise ValueError("jit_train_step graphs the one-process step; on a mesh, "
+                             "distributed() runs the step eagerly")
+        blocker = graph_blocker(self.env.env.config)
+        if blocker:
+            raise ValueError(f"jit_train_step: {blocker}")
+        if self.device.type != "cuda":
+            return self.train_step
+        return _GraphedTrainStep(self)
+
+
+class _GraphedTrainStep:
+    """``PPOLearner.jit_train_step``'s step on the card: ``train_step`` as
+    CUDA graphs of one pool.
+
+      - One rollout step: the forward, the action sample and its log-prob,
+        the env's ``step_body`` and the trajectory writes. The step index is
+        a device counter that the graph advances, so one graph serves every
+        t (one graph per t would capture ``rollout_len`` copies of the same
+        ~700 launches). The action noise (``noise_fn``) and the env's draws
+        are made eagerly before each replay, one step's at a time as
+        ``_rollout`` draws them (the Philox stream stays the same), and
+        copied into static buffers.
+      - The last value: one forward.
+      - GAE and the trajectory's metrics.
+      - One minibatch update: the forward, ``backward``, the clip (decided
+        on the device) and Adam's step, the loss metrics summed into a
+        static buffer. The epoch's permutation stays an eager ``perm_fn``
+        draw; each minibatch's time indices are copied into a static index
+        buffer before its replay. The critic-warmup gate is decided on the
+        host from ``update_count``, so the update is captured once for each
+        gate it meets: with the actor loss on, and masked.
+
+    The graphs and their buffers are bound to one model, optimizer and set
+    of shapes; another of any of them captures anew, as the JAX package's
+    train.py re-jits at each curriculum stage."""
+
+    def __init__(self, learner: PPOLearner):
+        self.lrn = learner
+        self.key = None
+
+    def _bind(self, ts: TrainState, obs: torch.Tensor) -> None:
+        lrn, cfg = self.lrn, self.lrn.cfg
+        T, mb = cfg.rollout_len, cfg.num_minibatches
+        if T % mb:
+            raise ValueError(f"rollout_len {T} is not a multiple of num_minibatches {mb}")
+        capturable_(ts.optimizer)
+        self.pool = GraphPool(lrn.device)
+        self.ts = ts
+        self.params = [p for p in ts.model.parameters() if p.requires_grad]
+        self.env_state = self.obs = self.draws = None      # made by their first stage()
+        b, n = obs.shape[:2]
+
+        def buf(*shape, dtype=torch.float32):
+            return torch.empty((T, *shape), dtype=dtype, device=obs.device)
+
+        self.traj = Transition(obs=buf(*obs.shape), raw_action=buf(b, n, 2), logp=buf(b, n),
+                               value=buf(b, n), reward=buf(b, n),
+                               ep_done=buf(b, dtype=torch.bool),
+                               agent_done=buf(b, n, dtype=torch.bool),
+                               status=buf(b, n, dtype=torch.int32))
+        self.noise = torch.empty((b, n, 2), device=obs.device)
+        self.t = torch.zeros((1,), dtype=torch.long, device=obs.device)
+        self.last_value = torch.empty((b, n), device=obs.device)
+        self.advs, self.rets = (torch.empty_like(self.traj.reward) for _ in range(2))
+        self.idx = torch.empty((T // mb,), dtype=torch.long, device=obs.device)
+        self.sums = torch.zeros(len(LOSS_METRICS), device=obs.device)
+        self.traj_metrics = torch.empty(len(TRAJ_METRICS), device=obs.device)
+        self.rollout = Graph(self._rollout_step, self.pool)
+        self.value = Graph(self._last_value, self.pool)
+        self.gae = Graph(self._gae, self.pool)
+        self.updates = {}           # actor_on -> the minibatch update's graph
+
+    @torch.no_grad()
+    def _rollout_step(self):
+        lrn, obs = self.lrn, self.obs
+        mean, log_std, value = self.ts.model(obs)
+        action, raw = sample_action(mean, log_std, self.noise)
+        logp, _ = logp_and_entropy(mean, log_std, raw)
+        env_state, out = lrn.env.step_body(self.env_state, action, self.draws)
+        for dst, src in zip(self.traj, (obs, raw, logp, value, out.reward,
+                                        out.terminated | out.truncated, out.done, out.status)):
+            dst.index_copy_(0, self.t, src[None])
+        copy_tree_(self.env_state, env_state)
+        obs.copy_(out.obs)
+        self.t += 1
+
+    @torch.no_grad()
+    def _last_value(self):
+        self.last_value.copy_(self.ts.model(self.obs)[2])
+
+    @torch.no_grad()
+    def _gae(self):
+        advs, rets = self.lrn._gae(self.traj, self.last_value)
+        self.advs.copy_(advs)
+        self.rets.copy_(rets)
+        self.traj_metrics.copy_(torch.stack(list(trajectory_metrics(self.traj).values())))
+        self.sums.zero_()
+
+    def _update(self, actor_on: float):
+        lrn, ts = self.lrn, self.ts
+        traj = self.traj
+        data = (traj.obs, traj.raw_action, traj.logp, self.advs, self.rets, traj.value)
+        loss, metrics = lrn._loss(ts.model, tuple(x[self.idx] for x in data), actor_on)
+        ts.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        clip_by_global_norm_([p.grad for p in self.params], lrn.cfg.max_grad_norm)
+        ts.optimizer.step()
+        self.sums += torch.stack([metrics[k].detach() for k in LOSS_METRICS])
+
+    def __call__(self, ts: TrainState, env_state, obs: torch.Tensor,
+                 split: Optional[Dict[str, float]] = None):
+        lrn, cfg = self.lrn, self.lrn.cfg
+        key = (id(ts.model), id(ts.optimizer), tuple(obs.shape),
+               tuple(tuple(t.shape) for t in leaves(env_state)))
+        if key != self.key:
+            self._bind(ts, obs)
+            self.key = key
+        if split is not None:
+            lrn._sync()
+            t0 = time.perf_counter()
+        self.env_state, self.obs = stage(self.env_state, env_state), stage(self.obs, obs)
+        self.t.zero_()
+        for _ in range(cfg.rollout_len):
+            self.noise.copy_(lrn.noise_fn(self.noise.shape))
+            self.draws = stage(self.draws, lrn.env.draws())
+            self.rollout()
+        self.value()
+        if split is not None:
+            lrn._sync()
+            t1 = time.perf_counter()
+            split["rollout_s"] = t1 - t0
+        self.gae()
+        T, mb = cfg.rollout_len, cfg.num_minibatches
+        size, per_step = T // mb, cfg.update_epochs * mb
+        for _ in range(cfg.update_epochs):
+            perm = lrn.perm_fn(T)
+            for i in range(mb):
+                self.idx.copy_(perm[i * size:(i + 1) * size])
+                actor_on = 1.0 if ts.update_count >= cfg.critic_warmup * per_step else 0.0
+                graph = self.updates.get(actor_on)
+                if graph is None:
+                    graph = self.updates[actor_on] = Graph(
+                        lambda a=actor_on: self._update(a), self.pool)
+                graph()
+                ts.update_count += 1
+        values = torch.cat([self.sums / per_step, self.traj_metrics])
+        if split is not None:
+            lrn._sync()
+            split["update_s"] = time.perf_counter() - t1
+        return ts, self.env_state, self.obs, dict(zip(LOSS_METRICS + TRAJ_METRICS,
+                                                      values.unbind()))
+
+    @property
+    def graphs(self) -> dict:
+        """The bound graphs by name, for their launch counts and capture times."""
+        out = dict(rollout=self.rollout, last_value=self.value, gae=self.gae)
+        out.update({f"update_actor_{'on' if a else 'off'}": g for a, g in self.updates.items()})
+        return out
 
 
 def read_metrics(metrics: Dict[str, torch.Tensor], mesh=None) -> Dict[str, float]:

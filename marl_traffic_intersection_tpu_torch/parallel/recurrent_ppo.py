@@ -122,3 +122,9 @@ class RecurrentPPOLearner(PPOLearner):
         metrics)``; ``split`` as in ``PPOLearner.train_step``."""
         ts, (env_state, obs, h), metrics = self._train(ts, (env_state, obs, h), split)
         return ts, env_state, obs, h, metrics
+
+    def jit_train_step(self, mesh=None):
+        """Not graphed yet (the JAX package's ``RecurrentPPOLearner`` jits
+        its step): ``train_step`` runs eagerly, and ROADMAP queues the graph."""
+        raise NotImplementedError("RecurrentPPOLearner has no graphed step yet; "
+                                  "train_step runs it eagerly")

@@ -14,7 +14,14 @@ without a card otherwise. Metrics stay on the device between log points; each
 log point is one JSON line with train.py's keys, the device's name, and the
 seconds of the update's rollout and of its GAE + optimisation (``rollout_s``,
 ``update_s``: at a log point the loop waits for the device before, between
-and after the two). ``--profile TRACE`` profiles the last update with
+and after the two), and ``step``: ``graphed`` or ``eager``. One process on
+the card without traffic, with the mlp, conv, central or attention model,
+runs ``PPOLearner.jit_train_step()``, the train step replayed as CUDA
+graphs (utils/graphs.py), as train.py always runs the JAX package's
+``jit_train_step``; each stage captures its own, as train.py re-jits at each
+stage. The CPU, ``--traffic`` (its step reads the device from the host),
+``--model gru`` and ``--distributed`` run ``train_step`` eagerly.
+``--profile TRACE`` profiles the last update with
 torch.profiler, prints its device busy share, launches and top kernels as a
 JSON line and writes its Chrome trace to TRACE.
 
@@ -103,6 +110,7 @@ from .parallel.recurrent_ppo import RecurrentPPOLearner
 from .utils.checkpoint import (checkpoint_exists, env_state_from_dict, env_state_to_dict,
                                load_train_state, resolve_policy, restore_checkpoint,
                                save_checkpoint)
+from .utils.graphs import capturable_
 from .utils.profiling import StepsPerSecond, profile_steps
 
 
@@ -357,6 +365,12 @@ def _train(args, dev: torch.device, mesh):
             _, shard_ts, shard_env = learner.distributed(mesh, args.model)
             ts = shard_ts(ts)
             carry = list(shard_env(*carry))
+        # the graphed step needs capturable Adam; an eager stage (on the CPU
+        # above all) takes Adam's step count back to the host
+        graphed = (mesh is None and dev.type == "cuda" and not traffic
+                   and args.model in ("mlp", "conv", "central", "attention"))
+        capturable_(ts.optimizer, graphed)
+        train_step = learner.jit_train_step() if graphed else learner.train_step
 
         meter = StepsPerSecond(steps_per_tick=args.num_envs * rollout_len)
         last = stage_hi - 1
@@ -368,13 +382,13 @@ def _train(args, dev: torch.device, mesh):
             if args.profile and rank0 and u == last and stage_idx == len(stages) - 1:
                 out = []
                 prof = profile_steps(
-                    lambda: out.append(learner.train_step(ts, *carry, split)), 1,
+                    lambda: out.append(train_step(ts, *carry, split)), 1,
                     trace=args.profile)
                 ts, *carry, metrics = out[0]
                 prof["top_kernels"] = prof["top_kernels"][:6]
                 log(json.dumps({"profile": prof}), flush=True)
             else:
-                ts, *carry, metrics = learner.train_step(ts, *carry, split)
+                ts, *carry, metrics = train_step(ts, *carry, split)
             if log_point:
                 m = read_metrics(metrics, mesh)      # one copy from the device
                 meter.tick()
@@ -385,7 +399,7 @@ def _train(args, dev: torch.device, mesh):
                     "env_steps_per_s": round(meter.value, 1),
                     **{k: round(v, 5) for k, v in m.items()},
                     **{k: round(v, 4) for k, v in split.items()},
-                    "device": dev_name}), flush=True)
+                    "step": "graphed" if graphed else "eager", "device": dev_name}), flush=True)
                 t_log, last_log_u = now, u
                 if tb is not None:
                     for k, v in m.items():

@@ -41,6 +41,7 @@ import torch
 
 from ..convert import params_from_flax, sac_actor_params_from_flax, sac_critic_params_from_flax
 from ..core.env import EgoState, EnvState
+from ..device import resolve_device
 from ..core.npc import NpcState
 from ..envs.normalize import NormState
 from ..models import make_model
@@ -171,9 +172,12 @@ def load_train_state(path, model_kind: str,
     return ShippedTrainState(model, optimizer, int(adam["update"]))
 
 
-def load_sac(path, device="cpu") -> Tuple[torch.nn.Module, TwinQCritic]:
+def load_sac(path, device=None) -> Tuple[torch.nn.Module, TwinQCritic]:
     """The SAC actor and twin critic of a checkpoint of the port's train_sac
-    or of a shipped SAC export, on ``device``."""
+    or of a shipped SAC export, on ``device`` (None: the card, raising
+    without one, as every entry point of the port; ``"cpu"`` asks for the
+    CPU)."""
+    device = resolve_device(device)
     kind, p = resolve_policy(path)
     if kind == "snapshot":
         tree = restore_checkpoint(p)
@@ -187,12 +191,14 @@ def load_sac(path, device="cpu") -> Tuple[torch.nn.Module, TwinQCritic]:
     return actor.to(device), critic.to(device)
 
 
-def load_policy(path, model_kind: str, device="cpu") -> Tuple[torch.nn.Module, Callable]:
+def load_policy(path, model_kind: str, device=None) -> Tuple[torch.nn.Module, Callable]:
     """A trained policy of family ``model_kind`` for deterministic inference,
     from a checkpoint of the port (train, or train_sac for 'sac') or a
-    shipped export: ``(model on device, mean_fn)``. ``mean_fn(obs)`` is the
+    shipped export: ``(model on device, mean_fn)``, ``device`` as for
+    ``load_sac``. ``mean_fn(obs)`` is the
     pre-tanh action mean; for 'gru', ``mean_fn(obs, h)`` returns ``(mean,
     h_new)`` and the caller carries the hidden state."""
+    device = resolve_device(device)
     if model_kind == "sac":
         model = load_sac(path, device)[0]
     else:

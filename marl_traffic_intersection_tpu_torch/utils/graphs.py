@@ -1,0 +1,165 @@
+"""CUDA graphs: the port's counterpart of ``jax.jit`` on its hot paths.
+
+The JAX package compiles each hot path into one XLA program
+(``VectorEnv.jit_step``, ``PPOLearner.jit_train_step``). Run eagerly, the
+port dispatches every operation from Python, and on the card the host's
+dispatch, not the device, sets the pace. A ``torch.cuda.CUDAGraph`` captured
+from the eager code replays exactly the kernels that code launches, in the
+same order, on the same operands, kernel K1's and the libm kernels' ctypes
+launches included, so a graphed function is bit-equal to its eager run and
+the exactness contract (EXACTNESS.md) carries over. ``torch.compile`` would
+regenerate the elementwise arithmetic (Triton contracts ``a*b + c`` into a
+fused multiply-add, hazard H3) and cannot see the ctypes launches.
+
+``Graph(fn, pool)`` graphs ``fn()``, a function of no arguments that reads
+and writes static tensors: buffers that exist before the capture and
+outlive it, which the caller refills before each call (``stage``). The
+first call runs ``fn`` eagerly on the pool's capture stream and does that
+call's work. That warm-up fills the caches that a capture must not create:
+``libm.const`` and ``libm.table`` copy from the host on first use, the nvcc
+builds of ops/native.py load, cuBLAS creates its handle and workspace for
+the stream, and Adam creates its state. Then ``fn`` is captured (a capture
+runs nothing) and every later call replays the graph. A failed capture or
+replay raises: there is no eager fallback on the card. What ``fn`` returns
+comes back from each call: the eager tensors on the first, the graph's own
+output tensors after, overwritten by the next replay.
+
+The kernel wrappers count their launches in ``native.LAUNCHES`` when Python
+calls them, which a replay does not. So a capture takes back the counts its
+calls added, keeps them as the graph's ``launches``, and each replay adds
+them again: the counters count what ran on the card, graphed or not.
+
+Graphs of one ``GraphPool`` share its memory pool, and its capture stream.
+They must run one at a time, which one stream gives, and a tensor a graph
+allocated stays valid only while something holds it: every graph keeps
+what its function returned.
+
+``capturable_(optimizer)`` switches Adam to keep its step count on the
+parameters' device (``capturable=True``), which a captured step needs.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import Callable, Optional
+
+import torch
+
+from ..ops import native
+
+
+class GraphPool:
+    """One memory pool and one capture stream for the graphs of one owner."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
+        self.handle = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+
+
+class Graph:
+    """``fn()`` run eagerly once, then captured and replayed (see the module
+    docstring). ``launches`` are the kernel launches counted while
+    capturing, credited to ``native.LAUNCHES`` on every replay; ``replays``
+    counts the replays and ``capture_s`` is the capture's host seconds."""
+
+    def __init__(self, fn: Callable, pool: GraphPool):
+        self.fn, self.pool = fn, pool
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out = None
+        self.launches: collections.Counter = collections.Counter()
+        self.replays = 0
+        self.capture_s = 0.0
+
+    def __call__(self):
+        if self.graph is None:
+            return self._warm_and_capture()
+        self.graph.replay()
+        self.replays += 1
+        native.LAUNCHES.update(self.launches)
+        return self.out
+
+    def _warm_and_capture(self):
+        side, here = self.pool.stream, torch.cuda.current_stream(self.pool.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            out = self.fn()
+        here.wait_stream(side)
+        before = collections.Counter(native.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool.handle, stream=side):
+                self.out = self.fn()
+        finally:
+            # the capture launched nothing: its counts become the replays'
+            self.launches = collections.Counter(native.LAUNCHES)
+            self.launches.subtract(before)
+            self.launches = +self.launches
+            native.LAUNCHES.clear()
+            native.LAUNCHES.update(before)
+        self.capture_s = time.perf_counter() - t0
+        self.graph = graph
+        return out
+
+
+def leaves(tree) -> list:
+    """The tensors of a nest of tuples (NamedTuples included), in order;
+    None entries are skipped."""
+    if tree is None:
+        return []
+    if torch.is_tensor(tree):
+        return [tree]
+    return [t for sub in tree for t in leaves(sub)]
+
+
+def clone_tree(tree):
+    """``tree`` with every tensor cloned into a new contiguous one."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return tree.clone(memory_format=torch.contiguous_format)
+    parts = [clone_tree(sub) for sub in tree]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+
+
+def copy_tree_(dst, src) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, which must match them in
+    structure, shape and type; a tensor that already is its static buffer
+    (a state passed back in) is not copied."""
+    d, s = leaves(dst), leaves(src)
+    if len(d) != len(s):
+        raise ValueError(f"expected {len(d)} tensors, got {len(s)}")
+    for a, b in zip(d, s):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"a graph's static buffer is {a.dtype} {tuple(a.shape)}, "
+                             f"got {b.dtype} {tuple(b.shape)}")
+        if a is b or (a.data_ptr() == b.data_ptr() and a.stride() == b.stride()):
+            continue
+        a.copy_(b)
+
+
+def stage(static, value):
+    """``value`` written into the static buffers ``static``, which are made
+    from it (cloned) when None; returns the static buffers."""
+    if static is None:
+        return clone_tree(value)
+    copy_tree_(static, value)
+    return static
+
+
+def capturable_(optimizer: torch.optim.Optimizer, on: bool = True) -> torch.optim.Optimizer:
+    """Switch an Adam to take its step count as a float32 tensor on the
+    parameters' device (``capturable=True``, which a captured step needs)
+    or back to the host (``on=False``), in place. Capturable Adam computes
+    its bias corrections in float32 on the device, where the eager one
+    takes them in float64 on the host, so the two agree to rounding."""
+    for group in optimizer.param_groups:
+        group["capturable"] = on
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and torch.is_tensor(state.get("step")):
+                state["step"] = state["step"].to(p.device if on else "cpu", torch.float32)
+    return optimizer

@@ -94,7 +94,7 @@ def test_gru_export_over_a_sequence_matches_the_jax_forward():
     recurrence carries each step's rounding differences on, so it is bounded
     in float32, by the next test."""
     jmodel, params, _ = jax_load_policy(str(ARTIFACTS / "policy_gru_multi"), "gru")
-    model, mean_fn = load_policy("policy_gru_multi", "gru")
+    model, mean_fn = load_policy("policy_gru_multi", "gru", device="cpu")
     seq = np.random.RandomState(11).uniform(-1, 1, (16, 256, 127)).astype(np.float32)
     apply = jax.jit(jmodel.apply)
     jh, th = np.zeros((256, 128), np.float32), model.initial_hidden(256)
@@ -162,7 +162,7 @@ def test_family_from_its_export_matches_the_jax_forward(kind, dtype):
 @pytest.mark.parametrize("spelling", ["artifacts/policy_gru_multi", "policy_gru_multi",
                                       "policy_gru_multi.npz"])
 def test_load_policy_resolves_a_shipped_name(spelling):
-    model, mean_fn = load_policy(spelling, "gru")
+    model, mean_fn = load_policy(spelling, "gru", device="cpu")
     obs, h = torch.from_numpy(_obs("gru", n=8)), model.initial_hidden(8)
     mean, h_new = mean_fn(obs, h)
     assert mean.shape == (8, 2) and h_new.shape == (8, 128) and not model.training
@@ -172,20 +172,20 @@ def test_load_policy_resolves_a_shipped_name(spelling):
 
 def test_load_policy_raises_naming_both_places(tmp_path):
     with pytest.raises(FileNotFoundError) as e:
-        load_policy(tmp_path / "policy_nope", "mlp")
+        load_policy(tmp_path / "policy_nope", "mlp", device="cpu")
     assert "checkpoint.pt" in str(e.value) and "policy_nope.npz" in str(e.value)
     # a run directory without a snapshot never falls back to the shipped
     # policy of the same name
     run = tmp_path / "runs" / "policy_mlp_multi"
     run.mkdir(parents=True)
     with pytest.raises(FileNotFoundError, match="checkpoint.pt"):
-        load_policy(run, "mlp")
+        load_policy(run, "mlp", device="cpu")
     with pytest.raises(FileNotFoundError):
-        load_policy(run, "sac")
+        load_policy(run, "sac", device="cpu")
 
 
 def test_load_sac_reads_the_actor_and_the_stacked_critics():
-    actor, critic = load_sac("artifacts/policy_sac_cfg1")
+    actor, critic = load_sac("artifacts/policy_sac_cfg1", device="cpu")
     q = read_export(EXPORTS / "policy_sac_cfg1.npz")["q_params"]
     assert tuple(critic.kernels[0].shape) == (2, 129, 256)
     np.testing.assert_array_equal(critic.kernels[0].detach().numpy(), q["torso_0"]["kernel"])

@@ -255,3 +255,78 @@ def test_traffic_env_on_the_card_equals_the_cpu(card, mode):
     for a, b in zip(outs["cpu"], outs[str(card)]):
         assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
                            b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def _graph_runs(card, steps, final_every=0):
+    """``steps`` steps of the eager and of the graphed (jit_step) VectorEnv
+    at 64 x 4, episodes of 20 steps, the same seeded actions: each a list of
+    host copies of (state leaves, out leaves[, final obs]) per step."""
+    import marl_traffic_intersection_tpu_torch as P
+    from marl_traffic_intersection_tpu_torch.utils.graphs import leaves
+    runs = []
+    for graphed in (False, True):
+        venv = P.VectorEnv(P.IntersectionEnv(P.EnvConfig(num_agents=4, max_steps=20),
+                                             device=card), num_envs=64, seed=3)
+        step = venv.jit_step() if graphed else venv.step
+        state, _ = venv.reset()
+        rng, hist = np.random.RandomState(8), []
+        for t in range(steps):
+            a = torch.from_numpy(rng.uniform(-1, 1, (64, 4, 2)).astype(np.float32)).to(card)
+            final = bool(final_every) and t % final_every == 0
+            state, *rest = step(state, a, final_obs=final)
+            hist.append([x.cpu() for x in leaves((state, rest))])
+        runs.append(hist)
+    return runs
+
+
+def test_graphed_step_equals_the_eager_step(card):
+    """VectorEnv.jit_step() replays a CUDA graph of the eager step's kernels:
+    bit-equal to ``step`` over 50 steps with auto-resets, both final_obs."""
+    eager, graphed = _graph_runs(card, 50, final_every=4)
+    assert sum(int(h[-4].sum()) + int(h[-3].sum()) for h in eager) > 0     # resets ran
+    for t, (a, b) in enumerate(zip(eager, graphed)):
+        assert len(a) == len(b), t
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                               y.view(torch.int32) if y.dtype == torch.float32 else y), t
+
+
+def test_graphed_step_takes_its_own_state_back_without_a_copy(card, monkeypatch):
+    """With donation the returned state is the graph's static input: passed
+    back in, it is not copied; another state is copied in."""
+    import marl_traffic_intersection_tpu_torch as P
+    from marl_traffic_intersection_tpu_torch.utils import graphs
+    venv = P.VectorEnv(P.IntersectionEnv(P.EnvConfig(num_agents=4), device=card), num_envs=64)
+    step = venv.jit_step()
+    state, _ = venv.reset()
+    a = torch.zeros((64, 4, 2), device=card)
+    s1, _ = step(state, a)
+    s2, _ = step(s1, a)
+    assert s2 is s1 and s1 is step.state
+    copies = []                 # the state leaves copied in
+    real = graphs.copy_tree_
+
+    def counted(dst, src):
+        if dst is step.state:
+            copies.extend(x for x, y in zip(graphs.leaves(dst), graphs.leaves(src))
+                          if x.numel() and x.data_ptr() != y.data_ptr())
+        return real(dst, src)
+
+    monkeypatch.setattr(graphs, "copy_tree_", counted)
+    s3, _ = step(s2, a)
+    assert copies == [] and s3 is step.state
+    fresh, _ = venv.reset()
+    s4, _ = step(fresh, a)
+    assert len(copies) == len([x for x in graphs.leaves(fresh) if x.numel()])
+    assert s4 is step.state
+
+
+def test_a_capture_that_fails_raises(card):
+    """A host read inside a graph cannot be captured: the capture raises,
+    and nothing falls back to running the function eagerly."""
+    from marl_traffic_intersection_tpu_torch.utils.graphs import Graph, GraphPool
+    x = torch.ones(8, device=card)
+    graph = Graph(lambda: float(x.sum()), GraphPool(card))
+    with pytest.raises(RuntimeError):
+        graph()
+    assert graph.graph is None

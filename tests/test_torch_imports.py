@@ -44,8 +44,8 @@ assert ts.update_count == 2 and all(bool(torch.isfinite(v)) for v in metrics.val
 # the shipped policies load from their numpy exports, with no orbax
 for name, kind in (("policy_gru_cfg1", "gru"), ("policy_sac_multi", "sac"),
                    ("artifacts/policy_attn_multi", "attention")):
-    model, mean_fn = load_policy(name, kind)
-actor, critic = load_sac("policy_sac_cfg1")
+    model, mean_fn = load_policy(name, kind, device="cpu")
+actor, critic = load_sac("policy_sac_cfg1", device="cpu")
 glearner = parallel.RecurrentPPOLearner(venv, models.make_model("gru"),
                                         PPOConfig(rollout_len=4, update_epochs=1,
                                                   num_minibatches=2))

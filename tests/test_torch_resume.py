@@ -313,8 +313,8 @@ def test_warm_start_central_keeps_the_mlp_actor(tmp_path, capsys):
     warm_start_central.main(["--source", "policy_mlp_cfg1", "--out", str(out), "--agents", "4"])
     snap = restore_checkpoint(out)
     assert snap["update"] == 0 and not snap["optimizer"]["state"]
-    mlp, _ = load_policy("policy_mlp_cfg1", "mlp")
-    central, _ = load_policy(out, "central")
+    mlp, _ = load_policy("policy_mlp_cfg1", "mlp", device="cpu")
+    central, _ = load_policy(out, "central", device="cpu")
     obs = torch.from_numpy(np.random.RandomState(0).uniform(-1, 1, (5, 3, 127))
                            .astype(np.float32))
     with torch.no_grad():

@@ -16,8 +16,9 @@ from . import _torch_port  # noqa: F401  (one torch thread per test worker)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ["--device", "cpu", "--num-envs", "4", "--agents", "2", "--rollout-len", "8",
          "--log-every", "1", "--updates", "2"]
-# what train.py writes: the learner's metrics, not the timing keys of the log line
-NOT_SCALARS = ("update", "secs", "env_steps_per_s", "rollout_s", "update_s", "device")
+# what train.py writes: the learner's metrics, not the timing keys and the
+# labels (which step ran, the device) of the log line
+NOT_SCALARS = ("update", "secs", "env_steps_per_s", "rollout_s", "update_s", "step", "device")
 
 
 def test_tb_writes_every_metric_at_every_logged_update(tmp_path, capsys):
