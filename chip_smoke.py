@@ -96,7 +96,21 @@ Phases, one line each; any failure exits nonzero:
               warm-up steps, narrowed, each with the same line. K1 on the
               last obstacle set of every M of every one of these runs (40
               full, 16 and 24 narrowed) bit-equal to the plain version, and
-              timed at each M. 64
+              timed at each M. Then the graphed step (jit_step: the
+              step's segments replayed as CUDA graphs, the host reading the
+              NPC width and steering the exact mode's loops between them)
+              against the eager one, for exact narrowed, exact full width,
+              fast narrowed and exact density 10 (after 150 warm-up steps):
+              the graphed warm-up steps with the captures, K1 and every libm
+              kernel on the operands recorded while capturing bit-equal to
+              their plain versions, 30 lockstep steps bit-equal at every step
+              (state, obs, reward, status, done, flags) with equal npc_stats,
+              then 40-step blocks in turns (eager, graphed, graphed, eager;
+              each pair's npc_stats equal), a profile of 5 steps of each and
+              the final states bit-equal: env-steps/s, device ms, busy share
+              and launches per step, host reads and loop rounds per step,
+              our kernels per step, the graphs and their capture time, peak
+              memory. 64
               envs x 8 agents x 200 steps at the full NPC width with a spawn
               try every step and resets at step 175: the card run bit-equal
               to the CPU run, and on the card the exact mode's slot and wave
@@ -105,7 +119,10 @@ Phases, one line each; any failure exits nonzero:
               the train entry point with --traffic --density 1.0 at 4096 x
               4: 3 updates and one more by auto-resume, finite losses, the
               kernels launched on their last operands at each shape
-              bit-equal to their plain versions
+              bit-equal to their plain versions, every update logged
+              "step": "graphed"; last, PPO with traffic at 4096 x 4,
+              rollout 64: the graphed train step's first rollout bit-equal
+              to train's eager step's, the split and busy share of each
   8. policies the twelve shipped policies (the committed numpy exports) loaded
               onto the card; each family's forward on 4096 seeded observations
               on the card and on the CPU within the CPU tests' bf16
@@ -226,7 +243,10 @@ their reset's observation), "launches_sac_train" those of train_sac at
 "launches_resume" those of the 2 resumed attention updates at 1024 x 4,
 "launches_gym" those of the 200 config-1 gym steps on the card,
 "launches_traffic_full" those of the 200 exact steps at the full NPC width
-("launches_traffic" are the narrowed run's), and "launches_plan_mpc" and
+("launches_traffic" are the narrowed run's), "launches_traffic_graphed"
+those of 40 graphed exact narrowed traffic steps and
+"ms_in_traffic_replay" the kernel's device time per launch inside 5 such
+replayed steps, and "launches_plan_mpc" and
 "launches_plan_cem" those of one random-shooting and one CEM plan,
 "launches_distributed" those of the first train --distributed run's 6
 updates at 4096 x 4. K1's
@@ -959,7 +979,7 @@ def graphs_phase(dev, card, kernels) -> int:
         gstep = gv.jit_step()
         for _ in range(5):              # the first call warms up, the second captures
             gs, go = gstep(gs, zeros)
-    graph = gstep.graphs[False]
+    graph = gstep.graphs[("step", None, False)]
 
     def block(graphed):
         nonlocal es, gs
@@ -1076,14 +1096,15 @@ def graphs_phase(dev, card, kernels) -> int:
     return 0
 
 
-def ppo_runs(dev, B, T, model_kw, names) -> dict:
+def ppo_runs(dev, B, T, model_kw, names, profile=True, **env_kw) -> dict:
     """PPO at B x 4, rollout T, from the same seeds, for each of ``names``:
     "host adam" (train's eager step, 1 update), "capturable adam" (the eager
     step with capturable Adam, 2 updates), "graphed" (jit_train_step, 2
-    updates); each then profiles one more update. Per name: the
+    updates); each then profiles one more update (with ``profile``).
+    ``env_kw`` goes to the env's EnvConfig (traffic). Per name: the
     trajectories, and after each update the env state, observation,
-    metrics, parameters and Adam's moments (copies), the splits, the
-    profile, and the graphed step's graphs."""
+    metrics, parameters, Adam's moments (copies) and the env's npc_stats,
+    the splits, the profile and the graphed step's graphs."""
     from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
     from marl_traffic_intersection_tpu_torch.models import make_model
     from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner
@@ -1092,8 +1113,8 @@ def ppo_runs(dev, B, T, model_kw, names) -> dict:
 
     runs = {}
     for name in names:
-        venv = VectorEnv(IntersectionEnv(EnvConfig(num_agents=4), device=dev), num_envs=B,
-                         seed=0)
+        venv = VectorEnv(IntersectionEnv(EnvConfig(num_agents=4, **env_kw), device=dev),
+                         num_envs=B, seed=0)
         lrn = PPOLearner(venv, make_model("mlp", seed=3, **model_kw),
                          PPOConfig(rollout_len=T), seed=4)
         ts = lrn.init()
@@ -1120,9 +1141,10 @@ def ppo_runs(dev, B, T, model_kw, names) -> dict:
                 metrics=torch.stack(list(metrics.values())),
                 params=[p.detach().clone() for p in ts.model.parameters()],
                 moments=[[ts.optimizer.state[p][m].clone() for m in ("exp_avg", "exp_avg_sq")]
-                         for p in ts.model.parameters()]))
+                         for p in ts.model.parameters()],
+                npc_stats=dict(venv.env.npc_stats)))
             splits.append(split)
-        prof = profile_steps(lambda: step(ts, state, obs), 1)
+        prof = profile_steps(lambda: step(ts, state, obs), 1) if profile else None
         runs[name] = dict(trajs=trajs, after=after, splits=splits, prof=prof,
                           graphs=step.graphs if name == "graphed" else None)
         del lrn, ts, state, obs, step
@@ -1589,6 +1611,159 @@ def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, time
                 by_m=dict(k1.by_m), widths=widths, reads=reads, peak=peak)
 
 
+def traffic_turns(dev, card, kernels, model, label, lock=30, block=40, warmup=50,
+                  replay_times=False, **cfg):
+    """Config 4 at TRAFFIC_B x TRAFFIC_N (``cfg`` over TRAFFIC_CFG), the eager
+    step against the graphed one (VectorEnv.jit_step: the step's segments
+    replayed as CUDA graphs between the host's reads), two VectorEnvs of one
+    seed with ``model`` in the loop. ``warmup`` graphed steps first (the
+    captures; K1's and the libm kernels' operands recorded while capturing
+    are held to their plain versions); the eager env then takes the
+    graphed one's state and generator. ``lock`` steps in lockstep on the
+    same actions: state, obs, reward, status, done and the episode and
+    spawn flags bit-equal at every step, and the npc_stats (host reads,
+    widths, loop rounds) equal. Then ``block``-step blocks in turns (eager,
+    graphed, graphed, eager; each pair on the same steps, so the npc_stats
+    of each pair must be equal too; a segment first met in a block is
+    captured there, and each block's rate is also given without its
+    captures' seconds), a profile of 5 steps of each, and the final states
+    bit-equal. With ``replay_times`` each kernel's launches in
+    the first graphed block and its device time inside a replay go to the
+    kernel line. Returns what it read (None on failure)."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.utils.graphs import clone_tree
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps, records
+
+    B = TRAFFIC_B
+
+    def venv_of():
+        return VectorEnv(IntersectionEnv(EnvConfig(**{**TRAFFIC_CFG, **cfg}), device=dev),
+                         num_envs=B, seed=2)
+
+    t_start = time.perf_counter()
+    ev, gv = venv_of(), venv_of()
+    gs, gobs = gv.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with k1_counted() as rec:           # the captures' operands stay referenced
+        gstep = gv.jit_step()
+        for _ in range(warmup):
+            gs, out = gstep(gs, model.act(gobs))
+            gobs = out.obs
+        torch.cuda.synchronize()
+    warm_s, peak_warm = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    reserved_warm = torch.cuda.memory_reserved()
+    held, bad = held_to_plain(rec, kernels)
+    if bad:
+        phase("traffic", f"FAIL {label}: on the graphs' operands {bad}")
+        return None
+    es, eobs = clone_tree(gs), gobs.clone()
+    ev.generator.set_state(gv.generator.get_state())
+    ev.env.npc_stats.clear()
+    gv.env.npc_stats.clear()
+    bad = torch.zeros((), dtype=torch.long, device=dev)
+    for _ in range(lock):
+        a = model.act(eobs)
+        es, eo = ev.step(es, a)
+        gs, go = gstep(gs, a)
+        bad += leaf_mismatches((es, eo), (gs, go))
+        eobs, gobs = eo.obs, go.obs
+    bad, stats = int(bad), (dict(ev.env.npc_stats), dict(gv.env.npc_stats))
+    if bad or stats[0] != stats[1]:
+        phase("traffic", f"FAIL {label}: graphed and eager steps differ in {bad} elements over "
+                         f"{lock} lockstep steps; npc_stats eager {stats[0]}, graphed {stats[1]}")
+        return None
+
+    def run_block(graphed):
+        nonlocal es, gs, eobs, gobs
+        venv = gv if graphed else ev
+        venv.env.npc_stats.clear()
+        native.reset_launches()
+        captured = sum(g.capture_s for g in gstep.graphs.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(block):
+            if graphed:
+                gs, o = gstep(gs, model.act(gobs))
+                gobs = o.obs
+            else:
+                es, o = ev.step(es, model.act(eobs))
+                eobs = o.obs
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        captured = sum(g.capture_s for g in gstep.graphs.values()) - captured
+        return dict(rate=B * block / secs, rate_no_capture=B * block / (secs - captured),
+                    capture_s=captured, stats=dict(venv.env.npc_stats),
+                    launches=dict(native.LAUNCHES), peak=torch.cuda.max_memory_allocated(),
+                    reserved=torch.cuda.memory_reserved())
+
+    blocks = [run_block(g) for g in (False, True, True, False)]
+    if blocks[0]["stats"] != blocks[1]["stats"] or blocks[2]["stats"] != blocks[3]["stats"]:
+        phase("traffic", f"FAIL {label}: npc_stats of the blocks (eager, graphed, graphed, "
+                         f"eager) {[b['stats'] for b in blocks]}")
+        return None
+
+    def eager_step():
+        nonlocal es, eobs
+        es, o = ev.step(es, model.act(eobs))
+        eobs = o.obs
+
+    def graphed_step():
+        nonlocal gs, gobs
+        gs, o = gstep(gs, model.act(gobs))
+        gobs = o.obs
+    profs = {"eager": profile_steps(eager_step, 5), "graphed": profile_steps(graphed_step, 5)}
+    final_bad = int(leaf_mismatches((es, eobs), (gs, gobs)))
+    if final_bad:
+        phase("traffic", f"FAIL {label}: the final states differ in {final_bad} elements")
+        return None
+    if replay_times:            # each kernel's device time inside 5 more replayed steps
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                graphed_step()
+            torch.cuda.synchronize()
+        recs = records(prof)
+        for k, row in kernels.items():
+            hits = [(n, us) for name, (n, us) in recs.items() if PROFILED_NAME.get(k, k) in name]
+            n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            row["launches_traffic_graphed"] = blocks[1]["launches"].get(k, 0)
+            row["ms_in_traffic_replay"] = us / n / 1e3 if n else None
+    graphs = gstep.graphs
+    per_step = lambda b, k: round(b["stats"].get(k, 0) / block, 3)
+    rates = [round(b["rate"], 1) for b in blocks]
+    line = dict(
+        rates=rates, rates_without_captures=[round(b["rate_no_capture"], 1) for b in blocks],
+        capture_s_in_blocks=[round(b["capture_s"], 3) for b in blocks],
+        peak_mib=[round(b["peak"] / 2**20, 1) for b in blocks],
+        reserved_mib=[round(b["reserved"] / 2**20, 1) for b in blocks],
+        peak_warm_mib=round(peak_warm / 2**20, 1), reserved_warm_mib=round(reserved_warm / 2**20, 1),
+        secs=round(time.perf_counter() - t_start, 1),
+        reads=[per_step(b, "host_reads") for b in blocks],
+        cleanup_rounds=[per_step(b, "cleanup_rounds") for b in blocks],
+        collision_rounds=[per_step(b, "collision_rounds") for b in blocks],
+        widths={k: v for k, v in blocks[1]["stats"].items() if "_width_" in k},
+        ours_per_step=[round(sum(b["launches"].values()) / block, 2) for b in blocks],
+        graphs=len(graphs), capture_s=round(sum(g.capture_s for g in graphs.values()), 3),
+        **{f"{k}_{name}": round(p[f], 4) for name, p in profs.items()
+           for k, f in (("device_ms", "device_busy_ms_per_step"),
+                        ("window_ms", "window_ms_per_step"),
+                        ("busy", "device_busy_share"),
+                        ("launches", "kernel_launches_per_step"))})
+    phase("traffic", f"graphed vs eager, config 4 {label}, {B}x{TRAFFIC_N}, bf16 MLP in the "
+                     f"loop: {warmup} graphed warm-up steps ({warm_s:.2f} s with the captures), "
+                     f"{lock} lockstep steps bit-equal at every step (state, obs, reward, status, "
+                     f"done, flags) with equal npc_stats, {block}-step blocks in turns (eager, "
+                     f"graphed, graphed, eager) with equal npc_stats per pair, final states "
+                     f"bit-equal; {json.dumps(line)}; graphs by key and our kernels per replay "
+                     f"{ {' '.join(map(str, k)): dict(g.launches) for k, g in graphs.items()} }; "
+                     f"the kernels on the graphs' operands bit-equal to their plain versions: "
+                     f"{held}; card {card}")
+    return line
+
+
 def traffic_phase(dev, card, kernels) -> int:
     """Phase 7 (see the module docstring); 1 on failure."""
     from marl_traffic_intersection_tpu_torch import ActorCriticMLP
@@ -1685,6 +1860,15 @@ def traffic_phase(dev, card, kernels) -> int:
                      f"M of each of the {len(runs)} runs: M by run "
                      f"{[sorted(r['k1_args']) for r in runs]}")
 
+    # the graphed step (jit_step) against the eager one, in turns
+    for label, cfg in (("exact narrowed", dict(replay_times=True)),
+                       ("exact full width (npc_tier=0)", dict(npc_tier=0)),
+                       ("fast narrowed", dict(npc_mode="fast")),
+                       ("exact narrowed, density 10", dict(traffic_density=10.0, warmup=150))):
+        if traffic_turns(dev, card, kernels, model, label, **cfg) is None:
+            return 1
+        torch.cuda.empty_cache()
+
     # 64 x 8 x 200 with injected spawns: card = CPU, and slot = wave = serial
     modes = (("exact", "slot"), ("exact", "wave"), ("serial", "slot"))
     cpu, _, _ = traffic_runs("cpu", modes[:1])
@@ -1724,16 +1908,39 @@ def traffic_phase(dev, card, kernels) -> int:
         held, bad = held_seen(rec, kernels)
         if (len(logs) != 3 or not losses_finite(logs) or [ln["update"] for ln in resumed] != [3]
                 or not losses_finite(resumed) or saved["update"] != 4
-                or int(saved["env_state"]["npc.next_uid"].sum()) == 0 or bad):
+                or int(saved["env_state"]["npc.next_uid"].sum()) == 0 or bad
+                or any(ln["step"] != "graphed" for ln in logs + resumed)):
             phase("traffic", f"FAIL: train --traffic logged {logs} then {resumed}; saved update "
                              f"{saved['update']}; {bad}")
             return 1
     phase("traffic", f"train --traffic --density 1.0, {TRAIN_B}x{TRAIN_N}, rollout {TRAIN_T}: "
                      f"env-steps/s by update {[ln['env_steps_per_s'] for ln in logs + resumed]}, "
                      f"rollout s {[ln['rollout_s'] for ln in logs + resumed]}, update s "
-                     f"{[ln['update_s'] for ln in logs + resumed]}; peak memory "
+                     f"{[ln['update_s'] for ln in logs + resumed]}; step "
+                     f"{[ln['step'] for ln in logs + resumed]}; peak memory "
                      f"{peak / 2**20:.1f} MiB; the kernels on the last step's operands bit-equal "
                      f"to their plain versions: {held}; card {card}")
+
+    # the graphed PPO step with traffic against train's eager one: the first
+    # rollout bit-equal, the host's reads and rounds equal
+    t0 = time.perf_counter()
+    runs = ppo_runs(dev, TRAIN_B, TRAIN_T, {}, ("host adam", "graphed"), profile=False,
+                    traffic_flow=True, traffic_density=1.0)
+    g, h = runs["graphed"], runs["host adam"]
+    bad_first = int(leaf_mismatches(g["trajs"][0], h["trajs"][0]))
+    stats = [r["after"][0]["npc_stats"] for r in (h, g)]
+    msg = (f"PPO --traffic --density 1.0, {TRAIN_B}x{TRAIN_N}, rollout {TRAIN_T}, bf16 MLP: the "
+           f"graphed train step's first rollout against train's eager step: {bad_first} "
+           f"elements differ; the first rollout's npc_stats eager {stats[0]}, graphed "
+           f"{stats[1]}")
+    if bad_first or stats[0] != stats[1] or not stats[0].get("tier_reads"):
+        phase("traffic", "FAIL: " + msg)
+        return 1
+    phase("traffic", msg + "; rollout_s/update_s by update: " + "; ".join(
+        f"{name} {[(round(x['rollout_s'], 4), round(x['update_s'], 4)) for x in r['splits']]}"
+        for name, r in runs.items()) + f"; {len(g['graphs'])} graphs, capture "
+        f"{sum(v.capture_s for v in g['graphs'].values()):.3f} s; "
+        f"{time.perf_counter() - t0:.1f} s; card {card}")
     return 0
 
 # the shipped policies: export name -> model family; README:231-240's mean

@@ -4,8 +4,9 @@ The counterpart of the repo's bench.py: 4096 envs x 4 agents, lidar on,
 auto-reset, zero actions, and the observation of every step consumed (its
 sum is accumulated on the card), so nothing is skipped. As bench.py times a
 jitted scan of the step, this times ``VectorEnv.jit_step()``, the step
-replayed as a CUDA graph (utils/graphs.py); BENCH_MODE=traffic times the
-eager step, whose host reads keep it out of a graph. The value is the
+replayed as CUDA graphs (utils/graphs.py); with BENCH_MODE=traffic, the
+graphs of the step's segments, the host reading the NPC width and steering
+the exact NPC loops between them (envs/vector.py). The value is the
 median of BENCH_REPEATS (default 5) timed blocks of BENCH_ITERS x
 BENCH_INNER steps, each block ended by ``torch.cuda.synchronize()``; the
 line also carries the per-block values, their spread, the card's name and
@@ -72,7 +73,7 @@ def bench(num_envs: int = 4096, num_agents: int = 4, iters: int = 5, inner: int 
                                     npc_mode=npc_mode, npc_cleanup=npc_cleanup),
                          device="cuda")
     venv = VectorEnv(env, num_envs=num_envs, seed=0)
-    step = venv.step if traffic else venv.jit_step()
+    step = venv.jit_step()
     state, obs = venv.reset()
     actions = torch.zeros((num_envs, num_agents, 2), device=env.device)
     chk = torch.zeros((), device=env.device)

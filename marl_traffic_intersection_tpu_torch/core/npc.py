@@ -27,6 +27,14 @@ decide (``pending.any()``), except the ``slot`` cleanup, whose round count is
 the batch's largest dependent count, read once. Each read is counted in the
 optional ``stats`` counter (``host_reads``, and the rounds of each loop).
 
+Each loop is a device start, a round that updates the carried state in
+place (``cleanup_round_``, ``cascade_round_``) and a host loop that reads
+the device to decide how many rounds run (``run_cleanup``,
+``run_cascade``). ``exact_segments`` strings them into the exact tick up to
+its despawn, every device part run by a segment runner: ``EAGER`` calls it,
+the graphed step (envs/vector.py, utils/graphs.py::Segments) replays a CUDA
+graph of it, so both run one body and make the same reads.
+
 The float chain is the reference's, as everywhere in the port: trig,
 ``atan2f`` and ``hypotf`` from ops/libm.py, correctly rounded square roots,
 each product rounded before its add, divisions by tensors. Row fetches are
@@ -241,6 +249,12 @@ def _write(mask, new: _Moved, cur: _Moved) -> _Moved:
     return _Moved(*(torch.where(mask, a, b) for a, b in zip(new, cur)))
 
 
+def _write_(mask, new: _Moved, cur: _Moved) -> None:
+    """``_write`` into ``cur``'s tensors."""
+    for a, b in zip(new, cur):
+        torch.where(mask, a, b, out=b)
+
+
 def _pool(cur: _Moved, uid):
     return cur.x, cur.y, cur.v, cur.heading, uid
 
@@ -320,6 +334,79 @@ def _interaction_graph(npc: NpcState, paths, pi0) -> torch.Tensor:
     return (acc_reach | scan_reach | scan_reach.transpose(1, 2)) & both & ~_eye(M, x.device)
 
 
+class ExactCarry(NamedTuple):
+    """What the exact controller's cleanup rounds carry: the pool planned
+    for, its polylines (B, M, P, 2), refreshed path indices, the could-read
+    order ``before`` ([i, j]: i interacts with j and precedes it), the slots
+    each slot looks at, the poses written so far and the dependent slots
+    not yet replayed."""
+
+    npc: NpcState
+    paths: torch.Tensor
+    pi0: torch.Tensor
+    before: torch.Tensor
+    others: torch.Tensor
+    cur: _Moved
+    pending: torch.Tensor
+
+
+def controller_begin(npc: NpcState, paths_table, dt) -> ExactCarry:
+    """The exact pass's dense plan: every slot planned against the pre-tick
+    poses, those with no interacting earlier neighbour written."""
+    M = npc.alive.shape[1]
+    dev = npc.alive.device
+    paths = paths_table[npc.route_id.long()]                      # (B, M, P, 2)
+    pi0 = update_path_index(paths, PATH_LEN, npc.path_index, npc.x, npc.y)
+    interact = _interaction_graph(npc, paths, pi0)
+    earlier = npc.uid[:, :, None] < npc.uid[:, None, :]
+    before = interact & earlier                                    # [i, j]: i before j
+    dependent = npc.alive & before.any(1)
+
+    others = npc.alive[:, None, :] & ~_eye(M, dev)
+    cur = _poses(npc)
+    cur = _write(npc.alive & ~dependent,
+                 _move(npc.x, npc.y, npc.v, npc.heading, npc.steering_angle, npc.uid, pi0,
+                       paths, others, _pool(cur, npc.uid), dt), cur)
+    return ExactCarry(npc, paths, pi0, before, others, cur, dependent)
+
+
+def cleanup_round_(c: ExactCarry, wave: bool, dt) -> None:
+    """One cleanup round, in place on ``c.cur`` and ``c.pending``: ``wave``
+    replays every pending slot whose interacting earlier neighbours are
+    settled, from one dense plan; ``slot`` the lowest-uid pending slot of
+    each env. A round with nothing pending writes nothing."""
+    npc, cur, pending = c.npc, c.cur, c.pending
+    if wave:
+        ready = pending & ~(c.before & pending[:, :, None]).any(1)
+        new = _move(cur.x, cur.y, cur.v, cur.heading, cur.steering_angle, npc.uid, c.pi0,
+                    c.paths, c.others, _pool(cur, npc.uid), dt)
+    else:
+        slot = torch.where(pending, npc.uid, _UID_MAX).argmin(1)
+        ready = pending & (torch.arange(pending.shape[1], device=slot.device) == slot[:, None])
+        new = _move_slot(cur, npc, _slot_path(c.paths, slot), _take(c.pi0, slot), slot, ready,
+                         dt)
+    _write_(ready, new, cur)
+    pending &= ~ready
+
+
+def run_cleanup(c: ExactCarry, wave: bool, round_, stats: Optional[collections.Counter] = None
+                ) -> None:
+    """The cleanup loop on the host: ``round_()`` runs one round on ``c``;
+    ``wave`` reads ``pending.any()`` before each round, ``slot`` the batch's
+    largest dependent count once."""
+    if wave:
+        rounds = 0
+        while bool(c.pending.any()):
+            round_()
+            rounds += 1
+        _count(stats, "cleanup", rounds, rounds + 1)
+    else:
+        rounds = int(c.pending.sum(1).max()) if c.pending.shape[0] else 0
+        for _ in range(rounds):
+            round_()
+        _count(stats, "cleanup", rounds, 1)
+
+
 def npc_controller_update(npc: NpcState, paths_table, dt, wave_cleanup: bool = False,
                           stats: Optional[collections.Counter] = None) -> NpcState:
     """Exact controller pass, bit-equal to ``npc_controller_update_serial``.
@@ -335,42 +422,9 @@ def npc_controller_update(npc: NpcState, paths_table, dt, wave_cleanup: bool = F
         neighbours are settled (they never interact with each other), each
         round a dense plan; rounds = the batch's deepest chain, one read each.
     """
-    B, M = npc.alive.shape
-    dev = npc.alive.device
-    paths = paths_table[npc.route_id.long()]                      # (B, M, P, 2)
-    pi0 = update_path_index(paths, PATH_LEN, npc.path_index, npc.x, npc.y)
-    interact = _interaction_graph(npc, paths, pi0)
-    earlier = npc.uid[:, :, None] < npc.uid[:, None, :]
-    before = interact & earlier                                    # [i, j]: i before j
-    dependent = npc.alive & before.any(1)
-
-    others = npc.alive[:, None, :] & ~_eye(M, dev)
-    cur = _poses(npc)
-    cur = _write(npc.alive & ~dependent,
-                 _move(npc.x, npc.y, npc.v, npc.heading, npc.steering_angle, npc.uid, pi0,
-                       paths, others, _pool(cur, npc.uid), dt), cur)
-    pending = dependent
-    if wave_cleanup:
-        rounds = 0
-        while bool(pending.any()):
-            ready = pending & ~(before & pending[:, :, None]).any(1)
-            new = _move(cur.x, cur.y, cur.v, cur.heading, cur.steering_angle, npc.uid, pi0,
-                        paths, others, _pool(cur, npc.uid), dt)
-            cur = _write(ready, new, cur)
-            pending = pending & ~ready
-            rounds += 1
-        _count(stats, "cleanup", rounds, rounds + 1)
-    else:
-        rounds = int(pending.sum(1).max()) if B else 0
-        slots = torch.arange(M, device=dev)
-        for _ in range(rounds):
-            slot = torch.where(pending, npc.uid, _UID_MAX).argmin(1)
-            oh = pending & (slots == slot[:, None])
-            cur = _write(oh, _move_slot(cur, npc, _slot_path(paths, slot), _take(pi0, slot),
-                                        slot, oh, dt), cur)
-            pending = pending & ~oh
-        _count(stats, "cleanup", rounds, 1)
-    return _with(npc, cur)
+    c = controller_begin(npc, paths_table, dt)
+    run_cleanup(c, wave_cleanup, lambda: cleanup_round_(c, wave_cleanup, dt), stats)
+    return _with(npc, c.cur)
 
 
 def npc_controller_update_fast(npc: NpcState, paths_table, dt) -> NpcState:
@@ -414,24 +468,56 @@ def npc_collisions_serial(npc: NpcState) -> NpcState:
     return npc._replace(alive=alive)
 
 
+class Cascade(NamedTuple):
+    """What the collision cascade's rounds carry: ``killing`` (B, M, M)
+    ([i, j]: i overlaps j and precedes it), the alive bits and the rows
+    that still kill."""
+
+    killing: torch.Tensor
+    alive: torch.Tensor
+    k: torch.Tensor
+
+
+def _killers(killing, alive):
+    return (killing & alive[:, None, :]).any(2) & alive
+
+
+def cascade_begin(npc: NpcState) -> Cascade:
+    """The cascade's start: the overlaps, a copy of the alive bits, the
+    first round's killers."""
+    killing = _collide(npc) & (npc.uid[:, :, None] < npc.uid[:, None, :])
+    alive = npc.alive.clone()
+    return Cascade(killing, alive, _killers(killing, alive))
+
+
+def cascade_round_(c: Cascade, uid) -> None:
+    """One killer row per env, the lowest uid first, in place on ``c.alive``
+    and ``c.k``; a round with no killer writes nothing."""
+    alive = c.alive
+    first_uid = torch.where(c.k, uid, _UID_MAX).amin(1, keepdim=True)
+    is_i = c.k & (uid == first_uid)
+    victims = (c.killing & is_i[:, :, None]).any(1) & alive
+    alive &= ~victims
+    alive &= ~is_i
+    torch.logical_and((c.killing & alive[:, None, :]).any(2), alive, out=c.k)
+
+
+def run_cascade(c: Cascade, round_, stats: Optional[collections.Counter] = None) -> None:
+    """The cascade's loop on the host: ``k.any()`` read before each round."""
+    rounds = 0
+    while bool(c.k.any()):
+        round_()
+        rounds += 1
+    _count(stats, "collision", rounds, rounds + 1)
+
+
 def npc_collisions(npc: NpcState, stats: Optional[collections.Counter] = None) -> NpcState:
     """Killer-row cascade, bit-equal to ``npc_collisions_serial``: only rows
     that overlap a later alive row change anything, so those alone are
     processed, lowest uid first, with the alive bits recomputed each round."""
-    killing = _collide(npc) & (npc.uid[:, :, None] < npc.uid[:, None, :])
-    alive = npc.alive
-    rounds = 0
-    while True:
-        k = (killing & alive[:, None, :]).any(2) & alive
-        if not bool(k.any()):
-            break
-        first_uid = torch.where(k, npc.uid, _UID_MAX).amin(1, keepdim=True)
-        is_i = k & (npc.uid == first_uid)
-        victims = (killing & is_i[:, :, None]).any(1) & alive
-        alive = alive & ~victims & ~is_i
-        rounds += 1
-    _count(stats, "collision", rounds, rounds + 1)
-    return npc._replace(alive=alive)
+    c = cascade_begin(npc)
+    run_cascade(c, lambda: cascade_round_(c, npc.uid), stats)
+    return npc._replace(alive=c.alive)
 
 
 def npc_collisions_fast(npc: NpcState) -> NpcState:
@@ -494,17 +580,61 @@ def npc_try_spawn(npc: NpcState, do_try, route_choice, ego_x, ego_y, ego_present
 
 # ----------------------------------------------------------------- pipelines
 
+class _Eager:
+    """The segment runner of the eager code: ``run(key, fn, *inputs)`` and
+    ``run.carry(key, fn, *inputs)`` are ``fn(*inputs)``
+    (utils/graphs.py::Segments is the graphed one)."""
+
+    def __call__(self, key, fn, *inputs):
+        return fn(*inputs)
+
+    carry = __call__
+
+
+EAGER = _Eager()
+
+
+def exact_begin(npc: NpcState, paths_table, spawn_xy, spawn_heading, traffic_route_ids, ego_x,
+                ego_y, ego_present, do_try, route_choice, dt) -> Tuple[ExactCarry, torch.Tensor]:
+    """The exact tick's first segment: the spawn attempt and the dense plan,
+    ``(carry, spawned)``."""
+    npc, spawned = npc_try_spawn(npc, do_try, route_choice, ego_x, ego_y, ego_present,
+                                 traffic_route_ids, spawn_xy, spawn_heading)
+    return controller_begin(npc, paths_table, dt), spawned
+
+
+def exact_segments(begin, inputs: tuple, wave: bool, dt,
+                   stats: Optional[collections.Counter] = None, run=EAGER, key: tuple = ()):
+    """The exact tick up to its despawn, each device part run by ``run`` under
+    ``key`` + its name, the host's loops between them: ``begin(*inputs)`` (the
+    spawn attempt and the dense plan, ``exact_begin``), the cleanup rounds,
+    the cascade's start and its rounds. Returns the carries
+    ``(carry, spawned, cascade)`` that ``exact_end`` finishes."""
+    c, spawned = run.carry(key + ("npc begin",), begin, *inputs)
+    run_cleanup(c, wave, lambda: run(key + ("npc cleanup", "wave" if wave else "slot"),
+                                     lambda c: cleanup_round_(c, wave, dt), c), stats)
+    k = run.carry(key + ("npc cascade",), lambda c: cascade_begin(_with(c.npc, c.cur)), c)
+    run_cascade(k, lambda: run(key + ("npc cascade round",), cascade_round_, k, c.npc.uid),
+                stats)
+    return c, spawned, k
+
+
+def exact_end(carries, goal_xy) -> Tuple[NpcState, torch.Tensor]:
+    """The tick's pool after the despawn, and ``spawned``, from
+    ``exact_segments``' carries."""
+    c, spawned, k = carries
+    return npc_despawn(_with(c.npc, c.cur)._replace(alive=k.alive), goal_xy), spawned
+
+
 def npc_traffic_update(npc: NpcState, paths_table, goal_xy, spawn_xy, spawn_heading,
                        traffic_route_ids, ego_x, ego_y, ego_present, do_try, route_choice,
                        dt, wave_cleanup: bool = False,
                        stats: Optional[collections.Counter] = None):
     """One tick of traffic (TrafficFlow.cpp:318-367): spawn attempt, the
     exact controller pass, ordered collision removal, despawn."""
-    npc, spawned = npc_try_spawn(npc, do_try, route_choice, ego_x, ego_y, ego_present,
-                                 traffic_route_ids, spawn_xy, spawn_heading)
-    npc = npc_controller_update(npc, paths_table, dt, wave_cleanup, stats)
-    npc = npc_collisions(npc, stats)
-    return npc_despawn(npc, goal_xy), spawned
+    args = (npc, paths_table, spawn_xy, spawn_heading, traffic_route_ids, ego_x, ego_y,
+            ego_present, do_try, route_choice, dt)
+    return exact_end(exact_segments(exact_begin, args, wave_cleanup, dt, stats), goal_xy)
 
 
 def npc_traffic_update_serial(npc: NpcState, paths_table, goal_xy, spawn_xy, spawn_heading,

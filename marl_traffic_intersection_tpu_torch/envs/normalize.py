@@ -16,6 +16,7 @@ import torch
 
 from ..core.constants import DT_DEFAULT
 from ..core.env import EnvState
+from ..core.npc import EAGER
 from .vector import VectorEnv
 
 
@@ -68,10 +69,18 @@ class RewardNormVecEnv:
         return self.step_body(state, actions, self.draws(dt), dt)
 
     def step_body(self, state: NormState, actions: torch.Tensor, draws: tuple,
-                  dt: float = DT_DEFAULT):
+                  dt: float = DT_DEFAULT, *, run=EAGER, finish=None):
         """``step`` with the step's random draws given (``draws``' result);
-        the normalisation reads nothing back to the host, so it graphs."""
-        env_state, out = self.venv.step_body(state.env_state, actions, draws, dt)
+        the normalisation reads nothing back to the host, so it runs inside
+        the wrapped step's last segment (``VectorEnv.step_body``'s ``run``
+        and ``finish``), and graphs with it."""
+        def normalized(env_state, out):
+            result = self._normalize(state, env_state, out)
+            return result if finish is None else finish(*result)
+        return self.venv.step_body(state.env_state, actions, draws, dt, run=run,
+                                   finish=normalized)
+
+    def _normalize(self, state: NormState, env_state, out):
         reward = out.reward                                    # (B, N)
         n = reward.shape[-1]
 

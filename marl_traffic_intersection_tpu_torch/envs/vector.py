@@ -35,10 +35,16 @@ counts these reads in ``host_reads`` and ``tier_reads``, and how often each
 width ran in ``step_width_<w>`` (w = max_npcs for the full pool).
 
 A step is ``draws`` (the random draws, eager) then ``step_body`` (the
-rest). ``jit_step`` is the JAX package's: on the card it replays a CUDA
-graph of ``step_body`` (utils/graphs.py) after the draws, bit-equal to
-``step``; the traffic step reads the device from the host and is not
-graphed (``graph_blocker``).
+rest). ``step_body`` is a sequence of device segments between the host's
+decisions, each run by a segment runner: the NPC width read; with the exact
+NPC mode, its update's segments and loops (``IntersectionEnv.exact_npc``);
+then the rest of the step as one segment. Eagerly (``core.npc.EAGER``) a
+segment is a call. ``jit_step`` is the JAX package's: on the card it
+replays a CUDA graph of each segment (utils/graphs.py::Segments), keyed by
+what the host decided (the width, the cleanup schedule, ``final_obs``),
+with the same reads and loop rounds as ``step`` and bit-equal to it, where
+the JAX package compiles the width ladder and the loops into one program
+(``lax.cond``, ``while_loop``).
 
 ``with_mesh(mesh)`` (parallel/mesh.py) binds a copy to a device mesh: it
 steps this rank's ``num_envs // data ranks`` envs (``num_envs`` stays the
@@ -61,7 +67,7 @@ import torch
 
 from ..core.constants import DT_DEFAULT
 from ..core.env import EnvState, IntersectionEnv
-from ..core.npc import NpcState, spawn_decision
+from ..core.npc import EAGER, NpcState, spawn_decision
 from ..core.routes import default_ego_routes
 
 
@@ -182,25 +188,21 @@ class VectorEnv:
     def jit_step(self, dt: float = DT_DEFAULT, donate: bool = True):
         """The counterpart of the JAX package's ``VectorEnv.jit_step``: a
         callable ``(state, actions, final_obs=False)`` with ``step``'s
-        contract. On the card it replays a CUDA graph of ``step_body``
-        (utils/graphs.py), one for each ``final_obs``, after ``draws`` made
-        eagerly (the generator's stream and any injected sampler stay as
-        ``step`` uses them) and written into a static buffer. On the CPU it
-        runs ``draws`` and ``step_body`` eagerly, as ``jax.jit`` compiles
-        for the CPU there.
+        contract. On the card it replays CUDA graphs of ``step_body``'s
+        segments (utils/graphs.py::Segments, one graph per segment and per
+        NPC width, cleanup schedule and ``final_obs``; the host reads the
+        width and steers the exact NPC mode's loops between them, as
+        ``step`` does), after ``draws`` made eagerly (the generator's stream
+        and any injected sampler stay as ``step`` uses them) and written
+        into a static buffer. On the CPU it runs ``draws`` and ``step_body``
+        eagerly, as ``jax.jit`` compiles for the CPU there.
 
         ``donate=True`` is the JAX donation contract: the returned state
-        lives in the graph's static buffers, so a state passed back in is the
-        graph's own input and is not copied (any other state is copied in),
+        lives in the graphs' static buffers, so a state passed back in is the
+        graphs' own input and is not copied (any other state is copied in),
         and the caller must not reuse the state passed in. The returned
         ``out`` stays valid until the next call. ``donate=False`` returns
-        clones of the state and the outputs.
-
-        With traffic it raises ValueError: the step reads the device from
-        the host, which a graph cannot replay (see ``graph_blocker``)."""
-        blocker = graph_blocker(self.env.config)
-        if blocker:
-            raise ValueError(f"VectorEnv.jit_step: {blocker}")
+        clones of the state and the outputs."""
         if self.env.device.type != "cuda":
             def step(state, actions, final_obs: bool = False):
                 return self.step(state, actions, dt, final_obs)
@@ -219,14 +221,32 @@ class VectorEnv:
         return self.step_body(state, actions, self.draws(dt), dt, final_obs)
 
     def step_body(self, state: EnvState, actions: torch.Tensor, draws: tuple,
-                  dt: float = DT_DEFAULT, final_obs: bool = False):
-        """``step`` with its random draws given (``draws``' result)."""
-        spawn, routes = draws
+                  dt: float = DT_DEFAULT, final_obs: bool = False, *, run=EAGER,
+                  finish: Optional[Callable] = None):
+        """``step`` with its random draws given (``draws``' result), each
+        device segment run by ``run`` (see the module docstring);
+        ``finish(new_state, *rest)``, applied inside the last segment, makes
+        the result (by default ``(new_state, *rest)``)."""
         w = self._step_width(state.npc) if self.npc_widths else None
+        cfg = self.env.config
+        carries = None
+        if cfg.traffic_flow and cfg.npc_mode == "exact":
+            carries = self.env.exact_npc(_narrow(state, w), draws[0], dt, run, key=(w,))
+
+        def rest(state, actions, draws, carries):
+            return (finish or _result)(*self._rest(state, actions, draws, carries, w, dt,
+                                                   final_obs))
+        return run(("step", w, final_obs), rest, state, actions, draws, carries)
+
+    def _rest(self, state, actions, draws, carries, w, dt, final_obs):
+        """The step after the NPC width read (and the exact NPC update's
+        segments, whose ``carries`` it finishes): the env's step at width
+        ``w``, the auto-reset merge and the observations."""
+        spawn, routes = draws
         # without auto-reset the observation is built inside the step, on the
         # narrowed pool
         small, out = self.env.step(_narrow(state, w), actions, dt,
-                                   with_obs=not self.auto_reset, spawn=spawn)
+                                   with_obs=not self.auto_reset, spawn=spawn, npc_carries=carries)
         new_state = small._replace(npc=_widen(small.npc, state.npc, w))
         if not self.auto_reset:
             return new_state, out
@@ -251,52 +271,42 @@ class VectorEnv:
         return merged, out
 
 
-def graph_blocker(config) -> Optional[str]:
-    """Why a step of ``config`` cannot be captured in a CUDA graph, or None.
-    A graph replays device work only, and the traffic step reads the device
-    from the host: ``VectorEnv._step_width``'s ``.tolist()`` picks the NPC
-    width, and the exact NPC update's loops (core/npc.py, the cleanup and
-    collision loops of ``npc_traffic_update``) run until a device flag says
-    they are done."""
-    if config.traffic_flow:
-        return ("traffic_flow=True steps are not graphed: VectorEnv._step_width reads "
-                "the NPC pool's width from the device (.tolist()), and the exact NPC "
-                "update's cleanup and collision loops (core/npc.py) run as many rounds "
-                "as the device says; the traffic step stays eager")
-    return None
+def _result(*parts):
+    return parts
 
 
 class _GraphedStep:
-    """``VectorEnv.jit_step``'s callable on the card (see there). Its
-    methods import utils.graphs when they run: utils imports this module
-    (through utils/checkpoint.py)."""
+    """``VectorEnv.jit_step``'s callable on the card (see there): the
+    segments of ``step_body`` replayed by one ``Segments``. Its methods
+    import utils.graphs when they run: utils imports this module (through
+    utils/checkpoint.py)."""
 
     def __init__(self, venv: VectorEnv, dt: float, donate: bool):
-        from ..utils.graphs import GraphPool
+        from ..utils.graphs import GraphPool, Segments
 
         self.venv, self.dt, self.donate = venv, dt, donate
-        self.pool = GraphPool(venv.env.device)
-        self.graphs: dict = {}
+        self.segments = Segments(GraphPool(venv.env.device))
         self.state = self.actions = self.draws = None
 
-    def _body(self, final_obs: bool):
+    @property
+    def graphs(self) -> dict:
+        """The captured graphs by segment key."""
+        return self.segments.graphs
+
+    def _keep(self, new_state, *rest):
         from ..utils.graphs import copy_tree_
 
-        new_state, *rest = self.venv.step_body(self.state, self.actions, self.draws, self.dt,
-                                               final_obs)
         copy_tree_(self.state, new_state)
         return rest
 
     def __call__(self, state, actions, final_obs: bool = False):
-        from ..utils.graphs import Graph, clone_tree, stage
+        from ..utils.graphs import clone_tree, stage
 
         draws = self.venv.draws(self.dt)
         self.state, self.actions = stage(self.state, state), stage(self.actions, actions)
         self.draws = stage(self.draws, draws)
-        graph = self.graphs.get(final_obs)
-        if graph is None:
-            graph = self.graphs[final_obs] = Graph(lambda: self._body(final_obs), self.pool)
-        rest = graph()
+        rest = self.venv.step_body(self.state, self.actions, self.draws, self.dt, final_obs,
+                                   run=self.segments, finish=self._keep)
         if self.donate:
             return (self.state, *rest)
         return (clone_tree(self.state), *clone_tree(rest))

@@ -58,6 +58,7 @@ single-process path, as XLA drops a psum over a size-1 axis.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
@@ -67,9 +68,8 @@ from torch import nn
 
 from ..core.constants import (STATUS_CRASH_CAR, STATUS_CRASH_LINE, STATUS_CRASH_WALL,
                               STATUS_SUCCESS)
-from ..envs.vector import graph_blocker
 from ..models.actor_critic import draw_noise, logp_and_entropy, sample_action
-from ..utils.graphs import Graph, GraphPool, capturable_, copy_tree_, leaves, stage
+from ..utils.graphs import Graph, GraphPool, Segments, capturable_, copy_tree_, leaves, stage
 from .mesh import (average_gradients_, axis_mean, axis_sum_, data_axis, global_grad_norm,
                    global_rows, model_axis, shard_batch_tree, shard_model_)
 
@@ -328,7 +328,9 @@ class PPOLearner:
         metrics)``, ``train_step``'s contract. On the card the rollout, GAE
         and each minibatch update replay CUDA graphs (``_GraphedTrainStep``);
         on the CPU it is ``train_step``. A ``mesh`` raises: ``distributed()``
-        stays eager. With traffic it raises as ``VectorEnv.jit_step`` does.
+        stays eager. With traffic the env step is the segmented one of
+        ``VectorEnv.jit_step`` (the host reads the NPC width and steers the
+        exact mode's loops between the graphs).
 
         The graphed step switches ``ts.optimizer`` to capturable Adam
         (utils/graphs.py::capturable_), whose float32 bias corrections agree
@@ -338,9 +340,6 @@ class PPOLearner:
         if mesh is not None or self.mesh is not None:
             raise ValueError("jit_train_step graphs the one-process step; on a mesh, "
                              "distributed() runs the step eagerly")
-        blocker = graph_blocker(self.env.env.config)
-        if blocker:
-            raise ValueError(f"jit_train_step: {blocker}")
         if self.device.type != "cuda":
             return self.train_step
         return _GraphedTrainStep(self)
@@ -350,14 +349,20 @@ class _GraphedTrainStep:
     """``PPOLearner.jit_train_step``'s step on the card: ``train_step`` as
     CUDA graphs of one pool.
 
-      - One rollout step: the forward, the action sample and its log-prob,
-        the env's ``step_body`` and the trajectory writes. The step index is
-        a device counter that the graph advances, so one graph serves every
-        t (one graph per t would capture ``rollout_len`` copies of the same
-        ~700 launches). The action noise (``noise_fn``) and the env's draws
-        are made eagerly before each replay, one step's at a time as
-        ``_rollout`` draws them (the Philox stream stays the same), and
-        copied into static buffers.
+      - One rollout step, as segments of one ``Segments``: the forward,
+        the action sample and its log-prob (the ``act`` graph, whose
+        result is carried in static buffers), then the env's ``step_body``
+        with the segment runner, whose last segment also writes the
+        trajectory, the env state, the observation and the step index
+        (``_record``). Without traffic the env step is one segment; with
+        traffic its NPC width and the exact mode's loop rounds are read by
+        the host between its segments, as ``VectorEnv.jit_step`` does. The
+        step index is a device counter that the last segment advances, so
+        one set of graphs serves every t (one per t would capture
+        ``rollout_len`` copies of the same ~700 launches). The action noise
+        (``noise_fn``) and the env's draws are made eagerly before each
+        step, one step's at a time as ``_rollout`` draws them (the Philox
+        stream stays the same), and copied into static buffers.
       - The last value: one forward.
       - GAE and the trajectory's metrics.
       - One minibatch update: the forward, ``backward``, the clip (decided
@@ -403,24 +408,33 @@ class _GraphedTrainStep:
         self.idx = torch.empty((T // mb,), dtype=torch.long, device=obs.device)
         self.sums = torch.zeros(len(LOSS_METRICS), device=obs.device)
         self.traj_metrics = torch.empty(len(TRAJ_METRICS), device=obs.device)
-        self.rollout = Graph(self._rollout_step, self.pool)
+        self.segments = Segments(self.pool)
         self.value = Graph(self._last_value, self.pool)
         self.gae = Graph(self._gae, self.pool)
         self.updates = {}           # actor_on -> the minibatch update's graph
 
-    @torch.no_grad()
-    def _rollout_step(self):
-        lrn, obs = self.lrn, self.obs
+    def _act(self, obs, noise):
         mean, log_std, value = self.ts.model(obs)
-        action, raw = sample_action(mean, log_std, self.noise)
+        action, raw = sample_action(mean, log_std, noise)
         logp, _ = logp_and_entropy(mean, log_std, raw)
-        env_state, out = lrn.env.step_body(self.env_state, action, self.draws)
-        for dst, src in zip(self.traj, (obs, raw, logp, value, out.reward,
+        return action, raw, logp, value
+
+    def _record(self, act, env_state, out):
+        """The env step's result written into the static buffers, inside
+        its last segment."""
+        _, raw, logp, value = act
+        for dst, src in zip(self.traj, (self.obs, raw, logp, value, out.reward,
                                         out.terminated | out.truncated, out.done, out.status)):
             dst.index_copy_(0, self.t, src[None])
         copy_tree_(self.env_state, env_state)
-        obs.copy_(out.obs)
+        self.obs.copy_(out.obs)
         self.t += 1
+
+    @torch.no_grad()
+    def _rollout_step(self):
+        act = self.segments.carry(("act",), self._act, self.obs, self.noise)
+        self.lrn.env.step_body(self.env_state, act[0], self.draws, run=self.segments,
+                               finish=functools.partial(self._record, act))
 
     @torch.no_grad()
     def _last_value(self):
@@ -461,7 +475,7 @@ class _GraphedTrainStep:
         for _ in range(cfg.rollout_len):
             self.noise.copy_(lrn.noise_fn(self.noise.shape))
             self.draws = stage(self.draws, lrn.env.draws())
-            self.rollout()
+            self._rollout_step()
         self.value()
         if split is not None:
             lrn._sync()
@@ -490,8 +504,10 @@ class _GraphedTrainStep:
 
     @property
     def graphs(self) -> dict:
-        """The bound graphs by name, for their launch counts and capture times."""
-        out = dict(rollout=self.rollout, last_value=self.value, gae=self.gae)
+        """The bound graphs by name, for their launch counts and capture times;
+        the rollout step's by segment key."""
+        out = {"rollout " + " ".join(map(str, k)): g for k, g in self.segments.graphs.items()}
+        out.update(last_value=self.value, gae=self.gae)
         out.update({f"update_actor_{'on' if a else 'off'}": g for a, g in self.updates.items()})
         return out
 

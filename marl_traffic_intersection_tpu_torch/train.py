@@ -15,12 +15,14 @@ log point is one JSON line with train.py's keys, the device's name, and the
 seconds of the update's rollout and of its GAE + optimisation (``rollout_s``,
 ``update_s``: at a log point the loop waits for the device before, between
 and after the two), and ``step``: ``graphed`` or ``eager``. One process on
-the card without traffic, with the mlp, conv, central or attention model,
-runs ``PPOLearner.jit_train_step()``, the train step replayed as CUDA
-graphs (utils/graphs.py), as train.py always runs the JAX package's
-``jit_train_step``; each stage captures its own, as train.py re-jits at each
-stage. The CPU, ``--traffic`` (its step reads the device from the host),
-``--model gru`` and ``--distributed`` run ``train_step`` eagerly.
+the card, with the mlp, conv, central or attention model, runs
+``PPOLearner.jit_train_step()``, the train step replayed as CUDA graphs
+(utils/graphs.py), as train.py always runs the JAX package's
+``jit_train_step``; with ``--traffic`` the env step's segments are graphed
+and the host reads the NPC width and steers the exact NPC loops between
+them (envs/vector.py). Each stage captures its own, as train.py re-jits at
+each stage, so a stage that turns traffic on captures the segmented step.
+The CPU, ``--model gru`` and ``--distributed`` run ``train_step`` eagerly.
 ``--profile TRACE`` profiles the last update with
 torch.profiler, prints its device busy share, launches and top kernels as a
 JSON line and writes its Chrome trace to TRACE.
@@ -367,7 +369,7 @@ def _train(args, dev: torch.device, mesh):
             carry = list(shard_env(*carry))
         # the graphed step needs capturable Adam; an eager stage (on the CPU
         # above all) takes Adam's step count back to the host
-        graphed = (mesh is None and dev.type == "cuda" and not traffic
+        graphed = (mesh is None and dev.type == "cuda"
                    and args.model in ("mlp", "conv", "central", "attention"))
         capturable_(ts.optimizer, graphed)
         train_step = learner.jit_train_step() if graphed else learner.train_step

@@ -34,6 +34,20 @@ They must run one at a time, which one stream gives, and a tensor a graph
 allocated stays valid only while something holds it: every graph keeps
 what its function returned.
 
+A program that the host must steer, as the traffic step whose NPC width
+and loop rounds are read from the device, is cut into segments between the
+host's decisions: ``Segments`` keeps one ``Graph`` per key (a segment at
+one NPC width, say) and the static buffers by which a segment hands its
+result to the next (``carry``). A capture runs nothing, so a graph's own
+outputs hold their values only after a replay, and the first call returns
+the warm-up's tensors: a segment captured on either would read stale
+memory later. So every tensor that crosses a segment boundary is copied,
+inside the segment that makes it, into a buffer made once and held for
+the life of the graphs, and every segment must be called on the buffers it
+was captured on (another input raises). The graphs of all keys share one
+pool and replay in another order than they were captured in, which is
+safe because each one's outputs stay held.
+
 ``capturable_(optimizer)`` switches Adam to keep its step count on the
 parameters' device (``capturable=True``), which a captured step needs.
 """
@@ -103,6 +117,51 @@ class Graph:
         self.capture_s = time.perf_counter() - t0
         self.graph = graph
         return out
+
+
+class Segments:
+    """Graphs of one pool by key: ``run(key, fn, *inputs)`` is the ``Graph``
+    of ``fn(*inputs)`` (made at the key's first call, on that call's
+    inputs), ``carry(key, fn, *inputs)`` the same with ``fn``'s result
+    copied into the key's static buffers, which it returns (see the module
+    docstring). A key's function is that of its first call; ``inputs`` are
+    nests of tensors and must be the same buffers at every call."""
+
+    def __init__(self, pool: GraphPool):
+        self.pool = pool
+        self.graphs: dict = {}
+        self._inputs: dict = {}
+        self._carried: dict = {}
+
+    def __call__(self, key, fn: Callable, *inputs):
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = Graph(lambda: fn(*inputs), self.pool)
+            self._inputs[key] = inputs
+        elif not _same_buffers(inputs, self._inputs[key]):
+            raise ValueError(f"graph {key} was captured on other input buffers")
+        return graph()
+
+    def carry(self, key, fn: Callable, *inputs):
+        def body(*xs):
+            out = fn(*xs)
+            if key in self._carried:
+                copy_tree_(self._carried[key], out)
+            else:           # the warm-up call: the buffers are made once
+                self._carried[key] = clone_tree(out)
+        self(key, body, *inputs)
+        return self._carried[key]
+
+
+def _same_buffers(a, b) -> bool:
+    """Whether two nests hold tensors at the same addresses."""
+    if a is b:
+        return True
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return torch.is_tensor(a) and torch.is_tensor(b) and a.data_ptr() == b.data_ptr()
+    if a is None or b is None or len(a) != len(b):
+        return False
+    return all(_same_buffers(x, y) for x, y in zip(a, b))
 
 
 def leaves(tree) -> list:

@@ -330,3 +330,129 @@ def test_a_capture_that_fails_raises(card):
     with pytest.raises(RuntimeError):
         graph()
     assert graph.graph is None
+
+
+def _packed_fleet(B, M, dev, rng, grid=False):
+    """An NPC pool with 20 NPCs in env 0 (the full width of 32 slots) and a
+    pair at one pose in env 1. Packed about the centre, two of env 0's at
+    one pose, the first step replays dependent slots and runs the cascade;
+    on a grid 70 px apart (``grid``) none overlaps, so all 20 stay."""
+    from marl_traffic_intersection_tpu_torch.core.npc import NpcState
+    alive = np.zeros((B, M), bool)
+    alive[0, :20] = alive[1, :2] = True
+    x = rng.uniform(320, 430, (B, M)).astype(np.float32)
+    y = rng.uniform(320, 430, (B, M)).astype(np.float32)
+    if grid:
+        x[0, :20], y[0, :20] = 60 + 70 * (np.arange(20) % 10), 250 + 250 * (np.arange(20) // 10)
+    else:
+        x[0, 1], y[0, 1] = x[0, 0], y[0, 0]
+    x[1, 1], y[1, 1] = x[1, 0], y[1, 0]
+    t = lambda a, d=np.float32: torch.from_numpy(a.astype(d)).to(dev)
+    return NpcState(alive=t(alive, bool), x=t(x), y=t(y), v=t(rng.uniform(0, 8, (B, M))),
+                    heading=t(rng.uniform(-np.pi, np.pi, (B, M))),
+                    steering_angle=t(np.zeros((B, M))),
+                    route_id=t(rng.randint(0, 12, (B, M)), np.int32),
+                    path_index=t(rng.randint(0, 160, (B, M)), np.int32),
+                    uid=t(np.tile(np.arange(M), (B, 1)), np.int32),
+                    next_uid=t(np.full(B, M), np.int32))
+
+
+def _traffic_venv(card, B, mode, cleanup="slot", p_try=1.0, max_steps=30):
+    """Config 4 (8 agents, 32 NPC slots) at B envs with seeded spawn tries."""
+    import marl_traffic_intersection_tpu_torch as P
+    env = P.IntersectionEnv(P.EnvConfig(num_agents=8, traffic_flow=True, npc_mode=mode,
+                                        npc_cleanup=cleanup, max_steps=max_steps), device=card)
+    srng, T = np.random.RandomState(6), env.traffic_ids.shape[0]
+
+    def spawns(k):
+        return (torch.from_numpy(srng.uniform(size=k) < p_try).to(card),
+                torch.from_numpy(srng.randint(T, size=k).astype(np.int32)).to(card))
+    return P.VectorEnv(env, num_envs=B, seed=3, spawn_sampler=spawns)
+
+
+def _host(tree):
+    from marl_traffic_intersection_tpu_torch.utils.graphs import leaves
+    return [x.cpu() for x in leaves(tree)]
+
+
+def _assert_host_bits(a, b, where):
+    assert len(a) == len(b), where
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                           y.view(torch.int32) if y.dtype == torch.float32 else y), (where, i)
+
+
+@pytest.mark.parametrize("mode,cleanup", [("exact", "slot"), ("exact", "wave"),
+                                          ("fast", "slot"), ("serial", "slot")])
+def test_graphed_traffic_step_equals_the_eager_step(card, mode, cleanup):
+    """VectorEnv.jit_step() with traffic, the segments of the step replayed
+    as CUDA graphs between the host's reads: bit-equal to ``step`` over 50
+    steps at 64 x 8 (a packed fleet injected at the start, a spawn try
+    every step, resets at step 30, both final_obs), with equal npc_stats;
+    the exact mode's cleanup and cascade must have run rounds."""
+    runs, stats = [], []
+    for graphed in (False, True):
+        venv = _traffic_venv(card, 64, mode, cleanup)
+        step = venv.jit_step() if graphed else venv.step
+        state, _ = venv.reset()
+        state = state._replace(npc=_packed_fleet(64, 32, card, np.random.RandomState(9)))
+        rng, hist = np.random.RandomState(8), []
+        for t in range(50):
+            a = np.stack([rng.uniform(0.2, 1.0, (64, 8)), rng.uniform(-0.2, 0.2, (64, 8))], -1)
+            state, *rest = step(state, torch.from_numpy(a.astype(np.float32)).to(card),
+                                final_obs=t % 4 == 0)
+            hist.append(_host((state, rest)))
+        runs.append(hist)
+        stats.append(dict(venv.env.npc_stats))
+    for t, (a, b) in enumerate(zip(*runs)):
+        _assert_host_bits(a, b, f"step {t}")
+    assert stats[0] == stats[1], stats
+    widths = [k for k in stats[0] if k.startswith("step_width_")]
+    assert len(widths) >= 2, stats[0]
+    if mode == "exact":
+        assert stats[0]["cleanup_rounds"] > 0 and stats[0]["collision_rounds"] > 0, stats[0]
+
+
+def test_graphed_traffic_step_replays_a_width_captured_before_a_switch(card):
+    """Widths 8 -> 32 -> 8: five steps from a fresh reset (w = 8), five from
+    a state with 20 NPCs on a grid (the full 32), five from a fresh reset
+    again, whose steps replay the w = 8 segments captured first (the graphs
+    of all widths share one pool): bit-equal to the eager step fed the same
+    states."""
+    runs = []
+    for graphed in (False, True):
+        venv = _traffic_venv(card, 64, "exact", p_try=0.3)
+        step = venv.jit_step() if graphed else venv.step
+        rng, hist, widths = np.random.RandomState(4), [], []
+        for leg in range(3):
+            state, _ = venv.reset()
+            if leg == 1:
+                state = state._replace(npc=_packed_fleet(64, 32, card, np.random.RandomState(2),
+                                                         grid=True))
+            if graphed and leg == 2:
+                replays = step.graphs[("step", 8, False)].replays
+            for _ in range(5):
+                before = dict(venv.env.npc_stats)
+                a = np.stack([rng.uniform(0.2, 1.0, (64, 8)),
+                              rng.uniform(-0.2, 0.2, (64, 8))], -1).astype(np.float32)
+                state, out = step(state, torch.from_numpy(a).to(card))
+                hist.append(_host((state, out)))
+                widths += [k for k, v in venv.env.npc_stats.items()
+                           if k.startswith("step_width_") and v > before.get(k, 0)]
+        assert widths == ["step_width_8"] * 5 + ["step_width_32"] * 5 + ["step_width_8"] * 5
+        runs.append(hist)
+    assert step.graphs[("step", 8, False)].replays >= replays + 5
+    assert step.graphs[(8, "npc begin")].replays >= 9
+    for t, (a, b) in enumerate(zip(*runs)):
+        _assert_host_bits(a, b, f"step {t}")
+
+
+def test_a_segment_that_reads_the_host_raises(card):
+    """A segment whose function reads the device from the host cannot be
+    captured: ``Segments`` raises, and nothing runs it eagerly instead."""
+    from marl_traffic_intersection_tpu_torch.utils.graphs import GraphPool, Segments
+    segs = Segments(GraphPool(card))
+    x = torch.ones(8, device=card)
+    with pytest.raises(RuntimeError):
+        segs.carry(("read",), lambda t: t * float(t.sum()), x)
+    assert segs.graphs[("read",)].graph is None

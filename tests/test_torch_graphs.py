@@ -11,12 +11,14 @@ on the CPU, where it runs eagerly:
   - ``PPOLearner.jit_train_step()`` bit-equal to ``train_step``, and the
     configurations that cannot be graphed raising;
   - the graphed steps' static buffers with each graph replaced by a re-run
-    of its function (``_Rerun``): the donation contract and the trajectory,
-    GAE and update buffers, bit-equal to the eager steps;
+    of its function (``_Rerun``, the segments' graphs included): the
+    donation contract and the trajectory, GAE and update buffers, bit-equal
+    to the eager steps;
   - the loaders' card default, and Adam's switch to and from capturable.
 
 The card's side (a real capture and replay) is in tests/test_torch_cuda.py
-and chip_smoke.py's ``graphs`` phase.
+and chip_smoke.py's ``graphs`` phase; the traffic step's segments in
+tests/test_torch_graphs_traffic.py.
 """
 import copy
 
@@ -141,9 +143,27 @@ def test_jit_step_on_the_cpu_equals_the_jax_jit_step(donate):
 
 
 def test_jit_step_with_traffic_raises_naming_the_host_reads():
-    venv = VectorEnv(port_env(N, traffic_flow=True), num_envs=B)
-    with pytest.raises(ValueError, match=r"_step_width.*tolist.*core/npc.py"):
-        venv.jit_step()
+    """The traffic step is graphed now (by segments between the host's
+    reads, tests/test_torch_graphs_traffic.py), so ``jit_step`` with traffic
+    no longer raises: on the CPU it is ``step``, bit-equal over 20 steps,
+    with the same host reads counted by name in ``npc_stats``."""
+    def make():
+        return VectorEnv(port_env(N, traffic_flow=True, traffic_density=6.0, max_npcs=8),
+                         num_envs=B, seed=4)
+
+    ev, jv = make(), make()
+    es, _ = ev.reset()
+    js, _ = jv.reset()
+    jstep = jv.jit_step()
+    rng = np.random.RandomState(2)
+    for t in range(20):
+        a = _actions(rng)
+        want = ev.step(es, a, final_obs=t % 2 == 0)
+        got = jstep(js, a, final_obs=t % 2 == 0)
+        _assert_trees(f"step {t}", want, got)
+        es, js = want[0], got[0]
+    assert ev.env.npc_stats == jv.env.npc_stats
+    assert jv.env.npc_stats["host_reads"] >= 20 and jv.env.npc_stats["tier_reads"] == 20
 
 
 def _learner(seed=0, norm=False, **cfg):
@@ -192,11 +212,10 @@ def test_jit_train_step_on_the_cpu_equals_train_step():
 
 
 def test_jit_train_step_raises_on_a_mesh_traffic_and_the_recurrent_learner():
+    """A mesh and the GRU learner raise; traffic no longer does (its graphed
+    step is tests/test_torch_graphs_traffic.py's)."""
     with pytest.raises(ValueError, match="distributed"):
         _learner().jit_train_step(mesh=object())
-    venv = VectorEnv(port_env(N, traffic_flow=True), num_envs=4)
-    with pytest.raises(ValueError, match="_step_width"):
-        PPOLearner(venv, make_model("mlp")).jit_train_step()
     with pytest.raises(NotImplementedError, match="eagerly"):
         RecurrentPPOLearner(VectorEnv(port_env(N), num_envs=4),
                             make_model("gru")).jit_train_step()
@@ -209,10 +228,13 @@ class _Pool:
 
 class _Rerun:
     """A graph that re-runs its function at every call: the graphed steps'
-    static buffers, on the CPU."""
+    static buffers, on the CPU. ``made`` lists every one made."""
+
+    made: list = []
 
     def __init__(self, fn, pool):
         self.fn, self.calls = fn, 0
+        _Rerun.made.append(self)
 
     def __call__(self):
         self.calls += 1
@@ -221,11 +243,16 @@ class _Rerun:
 
 @pytest.fixture
 def rerun_graphs(monkeypatch):
+    """Every graph, the segments' (``Segments``, which makes its graphs
+    through ``graphs.Graph``) and the learner's, replaced by a ``_Rerun``;
+    yields the list of those made."""
+    monkeypatch.setattr(_Rerun, "made", [])
     for module in (graphs, ppo):
         monkeypatch.setattr(module, "Graph", _Rerun)
         monkeypatch.setattr(module, "GraphPool", _Pool)
     # capturable Adam runs on the card only; on the CPU the eager Adam
     monkeypatch.setattr(ppo, "capturable_", lambda opt, on=True: opt)
+    yield _Rerun.made
 
 
 @pytest.mark.parametrize("donate", [True, False])
@@ -255,8 +282,10 @@ def test_graphed_step_buffers_equal_the_eager_step(rerun_graphs, donate):
                        for x, y in zip(graphs.leaves(got[0]), graphs.leaves(step.state))
                        if x.numel())
         se, sg = want[0], got[0]
-    assert sorted(step.graphs) == [False, True]
-    assert step.graphs[False].calls + step.graphs[True].calls == 40
+    # without traffic the whole step is one segment, one graph per final_obs
+    assert sorted(step.graphs) == [("step", None, False), ("step", None, True)]
+    assert sum(g.calls for g in step.graphs.values()) == 40
+    assert all(isinstance(g, _Rerun) for g in step.graphs.values())
 
 
 @pytest.mark.parametrize("norm", [False, True])
