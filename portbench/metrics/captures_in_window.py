@@ -1,0 +1,10 @@
+"""Graphs captured during the window: the graphs of ``VectorEnv.jit_step()``
+at the window's close less those at its start. A capture runs its segment
+eagerly and then captures it, far slower than a replay, so each one costs
+the window a capture's time. None where the step keeps no graphs."""
+
+
+def read(r):
+    if r.graphs_before is None:
+        return None
+    return float(r.graphs_after - r.graphs_before)

@@ -1,0 +1,336 @@
+"""Run one cell of the port's benchmark once, and print its result line.
+
+  python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+The system under test is marl_traffic_intersection_tpu_torch: its batched
+env step with auto-reset, replayed as CUDA graphs (``VectorEnv.jit_step``).
+A run
+
+  1. sets up: imports, loads the program's CUDA libraries (built into the
+     checkout's ``marl_traffic_intersection_tpu_torch/_build/`` on a first
+     run), builds the env, draws every input from ``--seed``
+     (portbench/traffic.py), resets, steps twice from a crowded copy of the
+     state where the traffic file asks for one (``crowd``), and then the
+     traffic file's ``warmup_steps`` from the real state, which fill the
+     NPC pool and capture the graphs;
+  2. steps for ``--seconds`` (window.py);
+  3. with ``--trace 1``, profiles a block of steps after the window and
+     times the program's lidar op on a window step's poses (trace.py);
+  4. frees the program and checks what the window produced against the
+     plain reference (check.py);
+  5. prints the result as its last line of standard output, after the
+     card's name and power limit (read once the run is done, so that it
+     costs the set-up nothing), the set-up's split and the check's
+     seconds, with each number compared beside its limit also as the last
+     lines of standard error.
+
+With ``--trace 0`` the result's metrics are the cell's end-to-end metrics,
+with ``--trace 1`` its per-layer metrics (portbench/metrics/). The run
+refuses to start without as many cards as the cell asks for, and prints
+no result if the process holds JAX or the JAX package once it is done.
+"""
+from __future__ import annotations
+
+import time
+
+_T_MODULE = time.perf_counter()
+
+import argparse  # noqa: E402
+import gc  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import types  # noqa: E402
+
+FOREIGN = ("jax", "jaxlib", "flax", "marl_traffic_intersection_tpu")
+POST_WINDOW_S = 60.0        # how long a checked step may come after the window
+
+
+def since_start() -> float:
+    """Seconds since this process started (/proc/self/stat's start time;
+    where that cannot be read, since this module was imported)."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        age = time.clock_gettime(time.CLOCK_BOOTTIME) - ticks / os.sysconf("SC_CLK_TCK")
+        if 0.0 <= age < 3600.0:
+            return age
+    except (OSError, ValueError, IndexError):
+        pass
+    return time.perf_counter() - _T_MODULE
+
+
+def foreign_modules() -> list:
+    """The loaded modules whose top-level name is JAX's or the JAX package's."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FOREIGN))
+
+
+def card_line() -> str:
+    """``name, power.limit`` of the first card, as nvidia-smi prints them."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           timeout=30, check=True)
+        return r.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "not read"
+
+
+def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda") -> dict:
+    """One run of ``cell`` (spec.Cell); returns the result line's object and
+    the notes printed before it. ``device="cpu"`` drives the same run
+    without a card (the tests), timing steps on the host's clock."""
+    t = {"before_run_s": since_start()}
+    clock_start = time.perf_counter()
+
+    def split(name):
+        nonlocal clock_start
+        now = time.perf_counter()
+        t[name] = now - clock_start
+        clock_start = now
+
+    import torch
+
+    from marl_traffic_intersection_tpu_torch.core.env import EnvConfig, IntersectionEnv
+    from marl_traffic_intersection_tpu_torch.envs.vector import VectorEnv
+    from marl_traffic_intersection_tpu_torch.ops import native
+
+    from . import check, traffic, window
+    from .reference import vector as ref_vector
+    split("import_s")
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        for source in sorted(p.name for p in native.CSRC.glob("*.cu")):
+            native.load(source)
+    split("kernel_load_s")
+
+    tr = traffic.validate(cell.traffic)
+    env_cfg = cell.env_config()
+    B = cell.num_envs
+    env = IntersectionEnv(EnvConfig(**env_cfg), device=dev)
+    split("env_build_s")
+
+    ref = check.reference_env(env_cfg)
+    inputs = traffic.make_inputs(tr, B, env.config.num_agents, env.config.max_steps,
+                                 ref_vector.route_pool(ref), int(ref.traffic_ids.shape[0]),
+                                 seed, dev)
+    split("inputs_s")
+    venv = VectorEnv(env, B, route_sampler=inputs.routes, spawn_sampler=inputs.spawns)
+    step = venv.jit_step()
+    state, obs = venv.reset()
+    rows = torch.as_tensor(inputs.check_rows, dtype=torch.long, device=dev)
+    start = (check.take_rows(state, rows), obs.index_select(0, rows),
+             inputs.routes.entry(inputs.routes.last).index_select(0, rows).to("cpu"))
+    if inputs.step_count is not None:
+        state = state._replace(step_count=inputs.step_count.clone())
+    rec = check.Recorder(inputs.check_steps, inputs.check_rows,
+                         tr["check"].get("busiest", 0), dev, tr["check"].get("ending", 0))
+    if on_card:
+        torch.cuda.synchronize()
+    split("reset_s")
+
+    g = 0                           # steps taken since the reset
+    Ka = inputs.actions.shape[0]
+
+    def widths():
+        return {name: n for name, n in env.npc_stats.items() if name.startswith("step_width_")}
+
+    def one(k=None):
+        """One step; ``k`` is its index in the window (None outside)."""
+        nonlocal state, g
+        posed = k is not None and rec.full_poses is None and rec.pending(k)
+        before = widths() if posed else None
+        if k is not None:
+            rec.before(k, state)
+        state, out = step(state, inputs.actions[g % Ka])
+        if k is not None:
+            rec.after(k, state, out, {"actions": g % Ka, "routes": inputs.routes.last,
+                                      "spawns": inputs.spawns.last if inputs.spawns else None})
+        if posed and rec.full_poses is not None:
+            # the NPC width the program stepped these poses at (its own counter)
+            rec.pose_width = next((int(name[len("step_width_"):])
+                                   for name, n in widths().items()
+                                   if n > before.get(name, 0)), None)
+        g += 1
+
+    if tr["crowd"]:
+        real = check.clone(state)
+        state = traffic.crowded(real, tr["crowd"], ref)
+        for _ in range(2):
+            one()
+        state = real
+    half, t_half = tr["warmup_steps"] // 2, time.perf_counter()
+    for i in range(tr["warmup_steps"]):
+        if i == half:
+            if on_card:
+                torch.cuda.synchronize()
+            t_half = time.perf_counter()
+        one()
+    if on_card:
+        torch.cuda.synchronize()
+    warm_rate = (tr["warmup_steps"] - half) / max(time.perf_counter() - t_half, 1e-9)
+    graphs = getattr(step, "graphs", None)
+    capture_s = sum(gr.capture_s for gr in graphs.values()) if graphs is not None else None
+    t["captures_s"] = capture_s
+    clock = window.CudaClock(window.event_pool_size(warm_rate, seconds)) if on_card \
+        else window.HostClock()
+    split("warmup_s")           # the captures included
+    graphs_before = len(graphs) if graphs is not None else None
+    stats_before = dict(env.npc_stats)
+    if on_card:
+        torch.cuda.synchronize()
+    setup_s = since_start()
+
+    win = window.measure(one, seconds, clock)
+
+    peak = torch.cuda.max_memory_reserved(dev) if on_card else 0
+    graphs_after = len(graphs) if graphs is not None else None
+    stats = {k: v - stats_before.get(k, 0) for k, v in env.npc_stats.items()
+             if not k.endswith("_max")}
+    k, t_post = win.steps, time.perf_counter()
+    while not rec.done() and time.perf_counter() - t_post < POST_WINDOW_S:
+        one(k)
+        k += 1
+    profile = None
+    if trace:
+        from .trace import profile_block
+        profile = profile_block(lambda _: one(), tr["profile_steps"])
+    poses, pose_width = rec.full_poses, rec.pose_width
+    del step, venv, env, state, graphs
+    gc.collect()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    lidar = lidar_readings(poses, pose_width, env_cfg) \
+        if trace and on_card and poses is not None else None
+
+    t_check = time.perf_counter()
+    if rec.done():
+        readings = check.run_check(ref, rec, start, inputs)
+    else:
+        missing = sorted(set(inputs.check_steps) - set(rec.taken))
+        readings = {**dict.fromkeys(check.LIMITS, -1), "steps": 0, "failed_env_steps": 0,
+                    "episode_ends": 0, "never_came": missing}
+    check_s = time.perf_counter() - t_check
+    correct = rec.done() and check.verdict(readings)
+
+    r = types.SimpleNamespace(num_envs=B, steps=win.steps, npc_stats=stats,
+                              graphs_before=graphs_before, graphs_after=graphs_after,
+                              capture_s=capture_s, profile=profile, lidar=lidar)
+    if trace:
+        from . import spec
+        metrics = {}
+        for m in cell.per_layer:
+            value = spec.reader(m["name"], cell.root)(r)
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    else:
+        e2e = {"env_steps_per_s": window.env_steps_per_s(win, B),
+               "step_ms_p95": window.step_ms_p95(win),
+               "peak_mem_mib": peak / 2 ** 20, "setup_s": setup_s}
+        metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
+                   for m in cell.end_to_end}
+    device_info = {"platform": "gpu" if on_card else "cpu",
+                   "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
+                   "count": 1, "memory_peak_bytes": int(peak)}
+    line = {"correct": bool(correct), "attempted": win.steps * B,
+            "failed": int(readings["failed_env_steps"]), "metrics": metrics,
+            "device": device_info}
+    if profile is not None:
+        device_info.update(busy_s=profile["busy_s"], window_s=profile["window_s"])
+        line["breakdown"] = {"device_ops": profile["top_ops"],
+                             "idle_gaps": profile["idle_gaps"]}
+    line["checks"] = {name: {"value": readings[name], "limit": limit}
+                      for name, limit in check.LIMITS.items()}
+    notes = {"setup_split": t, "setup_s": setup_s,
+             "window": {"steps": win.steps, "wall_s": win.wall_s, "npc_stats": stats,
+                        "graphs": [graphs_before, graphs_after],
+                        "period_ms_p50_p95_p99_max": window.quantiles(win)},
+             "check": {"seconds": check_s,
+                       "rows": len(inputs.check_rows) + tr["check"].get("ending", 0)
+                       + tr["check"].get("busiest", 0),
+                       "steps": inputs.check_steps, "post_window_steps": k - win.steps,
+                       "readings": readings}}
+    if trace:
+        notes["trace"] = {"lidar": lidar, "profile": None if profile is None else {
+            key: profile[key] for key in ("steps", "window_s", "device_ops", "device_s",
+                                          "busy_s")}}
+    return {"line": line, "notes": notes, "checked": (ref, rec, start, inputs)}
+
+
+def lidar_readings(poses, width, env_cfg: dict):
+    """The lidar's least time on a window step's poses and the program's
+    device time on them, in ms, with the operands that step scanned: every
+    env row, the egos, and the first ``width`` NPC slots, the width the
+    program stepped them at (None: every slot), as obstacles; None where the
+    program has no lidar op to time."""
+    import torch
+
+    try:
+        from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
+    except ImportError:
+        return None
+    from . import roofline
+    from .trace import lidar_ms
+
+    operands = lidar_operands(poses, width)
+    lanes = int(env_cfg.get("num_lanes", 3))
+    device_ms = lidar_ms(lambda *a: lidar_scan(*a, num_lanes=lanes), operands)
+    samples = roofline.lidar_samples(operands, lanes)
+    B, N = operands[0].shape
+    bound_s, by = roofline.lidar_bound_s(B, N, operands[3].shape[1], samples)
+    return {"bound_ms": bound_s * 1e3, "device_ms": device_ms, "by": by, "samples": samples,
+            "obstacles": int(operands[3].shape[1])}
+
+
+def lidar_operands(poses, width) -> tuple:
+    """The lidar's operands (sx, sy, sh, ox, oy, oh, om) of a step's poses
+    (ego x, y, heading, NPC x, y, heading, alive): the egos scan, and the
+    egos and the first ``width`` NPC slots (None: every slot) are the
+    obstacles, as the program's step builds them at that width."""
+    import torch
+
+    x, y, h, *npc = poses
+    nx, ny, nh, alive = (t[:, :width] for t in npc) if width is not None else npc
+    ones = torch.ones_like(x, dtype=torch.bool)
+    return (x, y, h, torch.cat([x, nx], 1), torch.cat([y, ny], 1),
+            torch.cat([h, nh], 1), torch.cat([ones, alive], 1))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, required=True)
+    p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = p.parse_args(argv)
+
+    from . import spec
+    cell = spec.load(args.workload)
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
+        print(f"portbench: {args.workload} needs {cell.chips} CUDA card(s); "
+              f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}",
+              file=sys.stderr)
+        return 2
+    result = run(cell, args.seed, args.seconds, bool(args.trace))
+    print(json.dumps({"card": card_line()}), flush=True)
+    foreign = foreign_modules()
+    if foreign:
+        print(f"portbench: the process holds {foreign}; the benchmark runs without JAX",
+              file=sys.stderr)
+        return 3
+    print(json.dumps(result["notes"]), flush=True)
+    for name, c in result["line"]["checks"].items():
+        print(f"check {name} {c['value']} limit {c['limit']}", file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result["line"]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
