@@ -1106,6 +1106,7 @@ def ppo_runs(dev, B, T, model_kw, names, profile=True, **env_kw) -> dict:
     metrics, parameters, Adam's moments (copies) and the env's npc_stats,
     the splits, the profile and the graphed step's graphs."""
     from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.core.npc import stat_counts
     from marl_traffic_intersection_tpu_torch.models import make_model
     from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner
     from marl_traffic_intersection_tpu_torch.utils.graphs import capturable_, leaves
@@ -1142,7 +1143,7 @@ def ppo_runs(dev, B, T, model_kw, names, profile=True, **env_kw) -> dict:
                 params=[p.detach().clone() for p in ts.model.parameters()],
                 moments=[[ts.optimizer.state[p][m].clone() for m in ("exp_avg", "exp_avg_sq")]
                          for p in ts.model.parameters()],
-                npc_stats=dict(venv.env.npc_stats)))
+                npc_stats=stat_counts(venv.env.npc_stats)))
             splits.append(split)
         prof = profile_steps(lambda: step(ts, state, obs), 1) if profile else None
         runs[name] = dict(trajs=trajs, after=after, splits=splits, prof=prof,
@@ -1631,6 +1632,7 @@ def traffic_turns(dev, card, kernels, model, label, lock=30, block=40, warmup=50
     the first graphed block and its device time inside a replay go to the
     kernel line. Returns what it read (None on failure)."""
     from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.core.npc import stat_counts
     from marl_traffic_intersection_tpu_torch.ops import native
     from marl_traffic_intersection_tpu_torch.utils.graphs import clone_tree
     from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps, records
@@ -1670,7 +1672,7 @@ def traffic_turns(dev, card, kernels, model, label, lock=30, block=40, warmup=50
         gs, go = gstep(gs, a)
         bad += leaf_mismatches((es, eo), (gs, go))
         eobs, gobs = eo.obs, go.obs
-    bad, stats = int(bad), (dict(ev.env.npc_stats), dict(gv.env.npc_stats))
+    bad, stats = int(bad), (stat_counts(ev.env.npc_stats), stat_counts(gv.env.npc_stats))
     if bad or stats[0] != stats[1]:
         phase("traffic", f"FAIL {label}: graphed and eager steps differ in {bad} elements over "
                          f"{lock} lockstep steps; npc_stats eager {stats[0]}, graphed {stats[1]}")
@@ -1696,7 +1698,7 @@ def traffic_turns(dev, card, kernels, model, label, lock=30, block=40, warmup=50
         secs = time.perf_counter() - t0
         captured = sum(g.capture_s for g in gstep.graphs.values()) - captured
         return dict(rate=B * block / secs, rate_no_capture=B * block / (secs - captured),
-                    capture_s=captured, stats=dict(venv.env.npc_stats),
+                    capture_s=captured, stats=stat_counts(venv.env.npc_stats),
                     launches=dict(native.LAUNCHES), peak=torch.cuda.max_memory_allocated(),
                     reserved=torch.cuda.memory_reserved())
 

@@ -155,8 +155,31 @@ def _pick(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class IntersectionEnv:
     """Batched environment core on one device (``cuda`` unless ``device``
     says otherwise). With traffic, every step takes the tick's spawn draw
-    from its caller (VectorEnv draws it); ``npc_stats`` counts the NPC
-    loops' rounds and device reads (core/npc.py)."""
+    from its caller (VectorEnv draws it).
+
+    ``npc_stats``, a ``collections.Counter``, holds the env's counts and
+    summed seconds of the steps with traffic, by key family:
+
+      * ``host_reads``: the host's reads of the device (the NPC width read,
+        the exact NPC loops' reads), a count; written by VectorEnv and the
+        exact loops (core/npc.py), whatever runs the segments;
+      * ``tier_reads``, ``step_width_<w>``: the width reads, and the steps
+        run at width w (w = max_npcs for the full pool), counts
+        (envs/vector.py);
+      * ``cleanup_rounds``, ``collision_rounds``: the exact mode's cleanup
+        and cascade rounds, counts (core/npc.py);
+      * ``npc_rounds_at_<n>``: the exact ticks whose cleanup and cascade
+        ran n rounds together, a count per n: the histogram of the loops'
+        rounds a tick (``core.npc.exact_segments``);
+      * ``read_idle_s.<cause>``: seconds, summed, from each host read of
+        that cause (``width``, ``cleanup``, ``cascade``) to the return of
+        the graph replay after it, in which the device idles; written only
+        by the graphed step's runner (utils/graphs.py::Segments, on
+        ``time.perf_counter_ns``); the eager runner (``core.npc.EAGER``),
+        and so every CPU run, keeps the counts only.
+
+    The counts of an eager and a graphed run of the same steps are equal
+    (``core.npc.stat_counts``)."""
 
     def __init__(self, config: EnvConfig = EnvConfig(),
                  reward: Optional[RewardParams] = None,
@@ -236,7 +259,8 @@ class IntersectionEnv:
         segments between the host's reads (core/npc.py::exact_segments), each
         run by ``run`` under ``key`` + its name: the carries that ``step``
         finishes when given them as ``npc_carries``. ``npc_stats`` counts
-        the reads and rounds."""
+        the reads and rounds, and ``run`` may time the device's idle after
+        each read (see the class docstring)."""
         dt_t = libm.const(dt, self.device)
 
         def begin(state, spawn):

@@ -24,8 +24,15 @@ pipelines carry that:
 The JAX package's ``while_loop``s run, under vmap, until no env has work
 left; here the loops do the same and read the device once per round to
 decide (``pending.any()``), except the ``slot`` cleanup, whose round count is
-the batch's largest dependent count, read once. Each read is counted in the
-optional ``stats`` counter (``host_reads``, and the rounds of each loop).
+the batch's largest dependent count, read once. The optional ``stats``
+counter (the env's ``npc_stats``, core/env.py) counts the reads
+(``host_reads``), the rounds of each loop (``cleanup_rounds``,
+``collision_rounds``) and, per tick, the loops' rounds together
+(``npc_rounds_at_<n>``: one more tick whose cleanup and cascade ran n
+rounds). Each read goes through ``host_read``, which tells the segment
+runner its cause (``cleanup``, ``cascade``): a graphed runner times from
+there the device's idle until its next replay (utils/graphs.py::Segments),
+the eager one keeps counts only.
 
 Each loop is a device start, a round that updates the carried state in
 place (``cleanup_round_``, ``cascade_round_``) and a host loop that reads
@@ -47,6 +54,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled as profiling
 
 from ..ops import libm
 from .constants import (CAR_LENGTH, CAR_WIDTH, HEIGHT, LANE_WIDTH_PX, PATH_LEN,
@@ -128,7 +136,57 @@ def _count(stats: Optional[collections.Counter], loop: str, rounds: int, reads: 
     if stats is not None:
         stats["host_reads"] += reads
         stats[f"{loop}_rounds"] += rounds
-        stats[f"{loop}_rounds_max"] = max(stats[f"{loop}_rounds_max"], rounds)
+
+
+IDLE = "read_idle_s."           # npc_stats' summed seconds: IDLE + a read's cause
+
+
+def stat_counts(stats) -> dict:
+    """The counts of an ``npc_stats`` counter: every key but the summed
+    seconds (``read_idle_s.<cause>``), which only a graphed run keeps."""
+    return {k: v for k, v in stats.items() if not k.startswith(IDLE)}
+
+
+def marked(name: str):
+    """The range ``name`` on a recording torch profiler's timeline (call it
+    where ``profiling()`` holds). It marks the host alone: a
+    ``record_function`` range (a user scope) also gets a device-side copy
+    spanning the kernels launched inside it, which a trace's reduction would
+    count as device work; this record (a function scope) gets none."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def host_read(run, cause: str, read):
+    """``read()``, a read of the device by the host, which waits for the
+    stream to drain. While a torch profiler records, the read is the range
+    ``mti.read.<cause>`` on its timeline. Then the segment runner ``run`` is
+    told (``run.after_read(cause)``): the graphed one times the device's
+    idle from here to its next replay, the eager one does nothing."""
+    if profiling():
+        with marked("mti.read." + cause):
+            value = read()
+    else:
+        value = read()
+    run.after_read(cause)
+    return value
+
+
+class _Eager:
+    """The segment runner of the eager code: ``run(key, fn, *inputs)`` and
+    ``run.carry(key, fn, *inputs)`` are ``fn(*inputs)``, and
+    ``run.after_read(cause)`` (``host_read``) does nothing
+    (utils/graphs.py::Segments is the graphed one)."""
+
+    def __call__(self, key, fn, *inputs):
+        return fn(*inputs)
+
+    carry = __call__
+
+    def after_read(self, cause: str) -> None:
+        pass
+
+
+EAGER = _Eager()
 
 
 # ------------------------------------------------------------------ planner
@@ -389,22 +447,25 @@ def cleanup_round_(c: ExactCarry, wave: bool, dt) -> None:
     pending &= ~ready
 
 
-def run_cleanup(c: ExactCarry, wave: bool, round_, stats: Optional[collections.Counter] = None
-                ) -> None:
+def run_cleanup(c: ExactCarry, wave: bool, round_, stats: Optional[collections.Counter] = None,
+                run=EAGER) -> int:
     """The cleanup loop on the host: ``round_()`` runs one round on ``c``;
     ``wave`` reads ``pending.any()`` before each round, ``slot`` the batch's
-    largest dependent count once."""
+    largest dependent count once; each read through ``host_read`` on
+    ``run``. Returns the rounds."""
     if wave:
         rounds = 0
-        while bool(c.pending.any()):
+        while host_read(run, "cleanup", c.pending.any().item):
             round_()
             rounds += 1
         _count(stats, "cleanup", rounds, rounds + 1)
     else:
-        rounds = int(c.pending.sum(1).max()) if c.pending.shape[0] else 0
+        rounds = host_read(run, "cleanup", c.pending.sum(1).max().item) \
+            if c.pending.shape[0] else 0
         for _ in range(rounds):
             round_()
         _count(stats, "cleanup", rounds, 1)
+    return rounds
 
 
 def npc_controller_update(npc: NpcState, paths_table, dt, wave_cleanup: bool = False,
@@ -502,13 +563,16 @@ def cascade_round_(c: Cascade, uid) -> None:
     torch.logical_and((c.killing & alive[:, None, :]).any(2), alive, out=c.k)
 
 
-def run_cascade(c: Cascade, round_, stats: Optional[collections.Counter] = None) -> None:
-    """The cascade's loop on the host: ``k.any()`` read before each round."""
+def run_cascade(c: Cascade, round_, stats: Optional[collections.Counter] = None,
+                run=EAGER) -> int:
+    """The cascade's loop on the host: ``k.any()`` read before each round,
+    through ``host_read`` on ``run``. Returns the rounds."""
     rounds = 0
-    while bool(c.k.any()):
+    while host_read(run, "cascade", c.k.any().item):
         round_()
         rounds += 1
     _count(stats, "collision", rounds, rounds + 1)
+    return rounds
 
 
 def npc_collisions(npc: NpcState, stats: Optional[collections.Counter] = None) -> NpcState:
@@ -580,20 +644,6 @@ def npc_try_spawn(npc: NpcState, do_try, route_choice, ego_x, ego_y, ego_present
 
 # ----------------------------------------------------------------- pipelines
 
-class _Eager:
-    """The segment runner of the eager code: ``run(key, fn, *inputs)`` and
-    ``run.carry(key, fn, *inputs)`` are ``fn(*inputs)``
-    (utils/graphs.py::Segments is the graphed one)."""
-
-    def __call__(self, key, fn, *inputs):
-        return fn(*inputs)
-
-    carry = __call__
-
-
-EAGER = _Eager()
-
-
 def exact_begin(npc: NpcState, paths_table, spawn_xy, spawn_heading, traffic_route_ids, ego_x,
                 ego_y, ego_present, do_try, route_choice, dt) -> Tuple[ExactCarry, torch.Tensor]:
     """The exact tick's first segment: the spawn attempt and the dense plan,
@@ -608,14 +658,19 @@ def exact_segments(begin, inputs: tuple, wave: bool, dt,
     """The exact tick up to its despawn, each device part run by ``run`` under
     ``key`` + its name, the host's loops between them: ``begin(*inputs)`` (the
     spawn attempt and the dense plan, ``exact_begin``), the cleanup rounds,
-    the cascade's start and its rounds. Returns the carries
-    ``(carry, spawned, cascade)`` that ``exact_end`` finishes."""
+    the cascade's start and its rounds; ``stats`` counts the tick in
+    ``npc_rounds_at_<n>``, n its cleanup and cascade rounds together.
+    Returns the carries ``(carry, spawned, cascade)`` that ``exact_end``
+    finishes."""
     c, spawned = run.carry(key + ("npc begin",), begin, *inputs)
-    run_cleanup(c, wave, lambda: run(key + ("npc cleanup", "wave" if wave else "slot"),
-                                     lambda c: cleanup_round_(c, wave, dt), c), stats)
+    rounds = run_cleanup(c, wave, lambda: run(key + ("npc cleanup", "wave" if wave else "slot"),
+                                              lambda c: cleanup_round_(c, wave, dt), c),
+                         stats, run)
     k = run.carry(key + ("npc cascade",), lambda c: cascade_begin(_with(c.npc, c.cur)), c)
-    run_cascade(k, lambda: run(key + ("npc cascade round",), cascade_round_, k, c.npc.uid),
-                stats)
+    rounds += run_cascade(k, lambda: run(key + ("npc cascade round",), cascade_round_, k,
+                                         c.npc.uid), stats, run)
+    if stats is not None:
+        stats[f"npc_rounds_at_{rounds}"] += 1
     return c, spawned, k
 
 

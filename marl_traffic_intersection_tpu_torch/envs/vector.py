@@ -31,8 +31,13 @@ batch's highest alive slot and its longest full slot prefix. The stepped
 pool has no alive slot at w or beyond (the step wrote none there) and a
 fresh pool is empty, so the observation of the merged state and
 ``final_obs`` use the step's width with no further read. ``env.npc_stats``
-counts these reads in ``host_reads`` and ``tier_reads``, and how often each
-width ran in ``step_width_<w>`` (w = max_npcs for the full pool).
+(the env's counts and summed seconds; core/env.py lists every key family)
+counts these reads in ``host_reads`` and ``tier_reads``, how often each
+width ran in ``step_width_<w>`` (w = max_npcs for the full pool), and the
+exact NPC update's rounds; the graphed step also sums there, in seconds,
+the device's idle after each read by the read's cause
+(``read_idle_s.width``, ``.cleanup``, ``.cascade``), where the eager step
+keeps the counts only.
 
 A step is ``draws`` (the random draws, eager) then ``step_body`` (the
 rest). ``step_body`` is a sequence of device segments between the host's
@@ -67,7 +72,7 @@ import torch
 
 from ..core.constants import DT_DEFAULT
 from ..core.env import EnvState, IntersectionEnv
-from ..core.npc import EAGER, NpcState, spawn_decision
+from ..core.npc import EAGER, NpcState, host_read, marked, profiling, spawn_decision
 from ..core.routes import default_ego_routes
 
 
@@ -154,14 +159,16 @@ class VectorEnv:
         state = self.env.reset_state(self.route_sampler(self.num_envs)[self.rows])
         return state, self.env.observe(state)
 
-    def _step_width(self, npc: NpcState) -> Optional[int]:
+    def _step_width(self, npc: NpcState, run=EAGER) -> Optional[int]:
         """The smallest width of the ladder at which ``npc`` may be stepped
-        (None: the full pool), from one device read: no env may have an alive
+        (None: the full pool), from one device read (``host_read``, cause
+        ``width``, on the segment runner ``run``): no env may have an alive
         slot at w or beyond, nor all of its first w slots alive, since a
         spawn could then write slot w."""
         a = npc.alive.long()
         slot = torch.arange(1, a.shape[1] + 1, device=a.device)
-        hi, full = torch.stack([(a * slot).amax(), a.cumprod(1).sum(1).amax()]).tolist()
+        bounds = torch.stack([(a * slot).amax(), a.cumprod(1).sum(1).amax()])
+        hi, full = host_read(run, "width", bounds.tolist)
         stats = self.env.npc_stats
         stats["host_reads"] += 1
         stats["tier_reads"] += 1
@@ -227,7 +234,7 @@ class VectorEnv:
         device segment run by ``run`` (see the module docstring);
         ``finish(new_state, *rest)``, applied inside the last segment, makes
         the result (by default ``(new_state, *rest)``)."""
-        w = self._step_width(state.npc) if self.npc_widths else None
+        w = self._step_width(state.npc, run) if self.npc_widths else None
         cfg = self.env.config
         carries = None
         if cfg.traffic_flow and cfg.npc_mode == "exact":
@@ -285,13 +292,20 @@ class _GraphedStep:
         from ..utils.graphs import GraphPool, Segments
 
         self.venv, self.dt, self.donate = venv, dt, donate
-        self.segments = Segments(GraphPool(venv.env.device))
+        self.segments = Segments(GraphPool(venv.env.device), venv.env.npc_stats)
         self.state = self.actions = self.draws = None
 
     @property
     def graphs(self) -> dict:
         """The captured graphs by segment key."""
         return self.segments.graphs
+
+    def _stage(self, state, actions, draws) -> None:
+        """The step's operands written into the static buffers."""
+        from ..utils.graphs import stage
+
+        self.state, self.actions = stage(self.state, state), stage(self.actions, actions)
+        self.draws = stage(self.draws, draws)
 
     def _keep(self, new_state, *rest):
         from ..utils.graphs import copy_tree_
@@ -300,11 +314,15 @@ class _GraphedStep:
         return rest
 
     def __call__(self, state, actions, final_obs: bool = False):
-        from ..utils.graphs import clone_tree, stage
+        from ..utils.graphs import clone_tree
 
-        draws = self.venv.draws(self.dt)
-        self.state, self.actions = stage(self.state, state), stage(self.actions, actions)
-        self.draws = stage(self.draws, draws)
+        if profiling():
+            with marked("mti.draws"):
+                draws = self.venv.draws(self.dt)
+            with marked("mti.stage"):
+                self._stage(state, actions, draws)
+        else:
+            self._stage(state, actions, self.venv.draws(self.dt))
         rest = self.venv.step_body(self.state, self.actions, self.draws, self.dt, final_obs,
                                    run=self.segments, finish=self._keep)
         if self.donate:

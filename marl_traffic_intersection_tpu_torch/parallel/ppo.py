@@ -408,7 +408,7 @@ class _GraphedTrainStep:
         self.idx = torch.empty((T // mb,), dtype=torch.long, device=obs.device)
         self.sums = torch.zeros(len(LOSS_METRICS), device=obs.device)
         self.traj_metrics = torch.empty(len(TRAJ_METRICS), device=obs.device)
-        self.segments = Segments(self.pool)
+        self.segments = Segments(self.pool, lrn.env.env.npc_stats)
         self.value = Graph(self._last_value, self.pool)
         self.gae = Graph(self._gae, self.pool)
         self.updates = {}           # actor_on -> the minibatch update's graph

@@ -48,6 +48,17 @@ was captured on (another input raises). The graphs of all keys share one
 pool and replay in another order than they were captured in, which is
 safe because each one's outputs stay held.
 
+A host read between segments (``core.npc.host_read``) drains the stream,
+and the device then idles until the next replay's graph starts. So a
+``Segments`` handed a counter (the env's ``npc_stats``) keeps a span per
+read: the read stamps the host's clock (``after_read(cause)``) and the
+next replay, when it returns, adds the seconds since the stamp to
+``stats["read_idle_s.<cause>"]``. A key's first call, which warms and
+captures, drops the open span. While a torch profiler records, each call
+of a key is the range ``mti.replay.<key>`` on its timeline (on the host
+alone, ``core.npc.marked``), beside the reads' ``mti.read.<cause>`` and
+the kernels the replay runs.
+
 ``capturable_(optimizer)`` switches Adam to keep its step count on the
 parameters' device (``capturable=True``), which a captured step needs.
 """
@@ -59,6 +70,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core.npc import IDLE, marked, profiling
 from ..ops import native
 
 
@@ -125,22 +137,41 @@ class Segments:
     inputs), ``carry(key, fn, *inputs)`` the same with ``fn``'s result
     copied into the key's static buffers, which it returns (see the module
     docstring). A key's function is that of its first call; ``inputs`` are
-    nests of tensors and must be the same buffers at every call."""
+    nests of tensors and must be the same buffers at every call. With
+    ``stats``, the device's idle after each host read is summed there by
+    cause, on ``clock`` (ns; see the module docstring)."""
 
-    def __init__(self, pool: GraphPool):
-        self.pool = pool
+    def __init__(self, pool: GraphPool, stats: Optional[collections.Counter] = None,
+                 clock: Callable[[], int] = time.perf_counter_ns):
+        self.pool, self.stats, self.clock = pool, stats, clock
         self.graphs: dict = {}
         self._inputs: dict = {}
         self._carried: dict = {}
+        self._read = None           # the open span: (its stats key, the clock at the read)
+
+    def after_read(self, cause: str) -> None:
+        """The host has just read the device: opens a span of ``cause``."""
+        if self.stats is not None:
+            self._read = (IDLE + cause, self.clock())
 
     def __call__(self, key, fn: Callable, *inputs):
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = Graph(lambda: fn(*inputs), self.pool)
             self._inputs[key] = inputs
+            self._read = None
         elif not _same_buffers(inputs, self._inputs[key]):
             raise ValueError(f"graph {key} was captured on other input buffers")
-        return graph()
+        if profiling():
+            with marked("mti.replay." + "/".join(map(str, key))):
+                out = graph()
+        else:
+            out = graph()
+        read = self._read
+        if read is not None:
+            self._read = None
+            self.stats[read[0]] += (self.clock() - read[1]) * 1e-9
+        return out
 
     def carry(self, key, fn: Callable, *inputs):
         def body(*xs):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
+from marl_traffic_intersection_tpu_torch.core.npc import stat_counts
 from marl_traffic_intersection_tpu_torch.ops import libm, native
 from marl_traffic_intersection_tpu_torch.ops.lidar_cases import edge_inputs, fuzz_inputs
 from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
@@ -403,7 +404,7 @@ def test_graphed_traffic_step_equals_the_eager_step(card, mode, cleanup):
                                 final_obs=t % 4 == 0)
             hist.append(_host((state, rest)))
         runs.append(hist)
-        stats.append(dict(venv.env.npc_stats))
+        stats.append(stat_counts(venv.env.npc_stats))
     for t, (a, b) in enumerate(zip(*runs)):
         _assert_host_bits(a, b, f"step {t}")
     assert stats[0] == stats[1], stats
@@ -445,6 +446,37 @@ def test_graphed_traffic_step_replays_a_width_captured_before_a_switch(card):
     assert step.graphs[(8, "npc begin")].replays >= 9
     for t, (a, b) in enumerate(zip(*runs)):
         _assert_host_bits(a, b, f"step {t}")
+
+
+def test_graphed_traffic_step_times_the_device_idle_after_each_read(card):
+    """30 exact steps at 64 x 8 (the packed fleet, a spawn try every step),
+    eager then graphed: the graphed run keeps a span for each of the three
+    read causes (the width, the cleanup's, the cascade's), each >= 0 and
+    together below the run's host wall time; the eager run keeps none, and
+    the counts of the two runs are equal."""
+    import time
+
+    from marl_traffic_intersection_tpu_torch.core.npc import IDLE
+
+    runs = []
+    for graphed in (False, True):
+        venv = _traffic_venv(card, 64, "exact")
+        step = venv.jit_step() if graphed else venv.step
+        state, _ = venv.reset()
+        state = state._replace(npc=_packed_fleet(64, 32, card, np.random.RandomState(9)))
+        rng = np.random.RandomState(8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(30):
+            a = np.stack([rng.uniform(0.2, 1.0, (64, 8)), rng.uniform(-0.2, 0.2, (64, 8))], -1)
+            state, _ = step(state, torch.from_numpy(a.astype(np.float32)).to(card))
+        torch.cuda.synchronize()
+        runs.append((dict(venv.env.npc_stats), time.perf_counter() - t0))
+    (eager, _), (stats, wall_s) = runs
+    idle = {k: v for k, v in stats.items() if k.startswith(IDLE)}
+    assert sorted(idle) == sorted(IDLE + c for c in ("width", "cleanup", "cascade")), stats
+    assert all(v >= 0 for v in idle.values()) and sum(idle.values()) < wall_s, (idle, wall_s)
+    assert stat_counts(stats) == eager and not any(k.startswith(IDLE) for k in eager)
 
 
 def test_a_segment_that_reads_the_host_raises(card):

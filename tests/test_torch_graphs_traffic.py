@@ -7,7 +7,8 @@ run as on the card:
   - ``_GraphedStep`` with traffic bit-equal to the eager ``step`` at 8 x 2
     with 8 NPC slots (widths 2, 4 and the full 8) for the exact mode's
     ``slot`` and ``wave`` cleanups, ``fast`` and ``serial``, over 60 steps
-    with resets and both ``final_obs``, and ``npc_stats`` equal. A fleet
+    with resets and both ``final_obs``, and ``npc_stats``' counts equal
+    (the graphed run also sums the device's idle after its reads). A fleet
     injected at the start (packed NPCs, two pairs at one pose) and spawns
     tried every other step make the run switch widths and back, replay
     dependent slots and run the collision cascade: the test asserts all
@@ -36,7 +37,7 @@ from marl_traffic_intersection_tpu.core.constants import DT_DEFAULT
 from marl_traffic_intersection_tpu.core.npc import spawn_decision
 from marl_traffic_intersection_tpu.envs.vector import VectorEnv as JaxVectorEnv
 from marl_traffic_intersection_tpu_torch import VectorEnv
-from marl_traffic_intersection_tpu_torch.core.npc import NpcState
+from marl_traffic_intersection_tpu_torch.core.npc import NpcState, stat_counts
 from marl_traffic_intersection_tpu_torch.envs import vector as vector_module
 from marl_traffic_intersection_tpu_torch.envs.normalize import RewardNormVecEnv
 from marl_traffic_intersection_tpu_torch.models import make_model
@@ -125,12 +126,13 @@ def test_segmented_traffic_step_equals_the_eager_step(rerun_graphs, mode):
         se, sg = want[0], got[0]
         assert sg is step.state
     stats = ev.env.npc_stats
-    assert stats == gv.env.npc_stats, (stats, gv.env.npc_stats)
+    assert stat_counts(stats) == stat_counts(gv.env.npc_stats), (stats, gv.env.npc_stats)
     assert len(widths) == STEPS and len(set(widths)) >= 2 and _switches_back(widths), widths
     assert resets >= B
     begun = {k[0] for k in step.graphs if k[1:] == ("npc begin",)}
     if mode.startswith("exact"):
-        assert stats["cleanup_rounds_max"] >= 1 and stats["collision_rounds"] >= 1, stats
+        top = max(int(k[len("npc_rounds_at_"):]) for k in stats if k.startswith("npc_rounds_at_"))
+        assert top >= 1 and stats["cleanup_rounds"] >= 1 and stats["collision_rounds"] >= 1, stats
         assert len(begun) >= 2, sorted(step.graphs, key=str)
     else:
         assert not begun          # fast and serial: one segment per width
@@ -207,7 +209,7 @@ def test_graphed_train_step_with_traffic_equals_train_step(rerun_graphs, norm):
         return steps[-1]
     eager, graphed = _train_pair(make, 2, graphed_step)
     _assert_train_runs(eager, graphed)
-    e, g = (lrn.env.env.npc_stats for lrn in learners)
+    e, g = (stat_counts(lrn.env.env.npc_stats) for lrn in learners)
     assert e == g and e["tier_reads"] == 16, (e, g)
     keys = steps[0].segments.graphs
     assert ("act",) in keys and any(k[1:] == ("npc begin",) for k in keys), sorted(keys, key=str)
