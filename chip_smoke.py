@@ -74,6 +74,19 @@ Phases, one line each; any failure exits nonzero:
               card and on the CPU in float32, parameters within 1e-5 and
               Adam's moments within 1e-4 of their largest, the update moving
               the parameters more than ten times that
+  6b. npc_move  K2, the NPC planner's move (csrc/npc_move.cu), against its
+              plain version core/npc.py::move_ref on the card and on the CPU,
+              bit for bit, one launch a call: on ops/npc_move_cases.py's
+              cases at 256 envs (dense and slot at w = 8, 16, 32; the edge
+              cases), then on the arguments the traffic path last passed at
+              each (S, M) in 10 eager config-4 steps at 4096 x 8 after 100,
+              narrowed (npc_tier -1), at npc_tier 16 and at the full width:
+              dense at w = 8, 16 and 32 and the slot rounds; at each, K2's
+              device time beside move_ref's device time and launches on the
+              card and its time on the CPU, and the bound from bytes and
+              operations; ptxas's registers and spills. Last, 40 graphed
+              config-4 steps (jit_step) after 50: K2's launches in each step
+              equal 1 + that step's cleanup rounds
   7. traffic  BASELINE config 4 (8 agents, density 1.0, 32 NPC slots, exact
               NPC mode) at 4096 envs for 200 steps with the bf16 MLP in the
               loop, spawns drawn on the card, four times in turns: the pool
@@ -579,7 +592,7 @@ def main() -> int:
     # other lidar.cu and libm.cu files, built beside ours with the same flags
     baselines = {d: start_baseline("lidar.cu", j, d) for j, d in enumerate(opts.baseline)}
     libm_built = {d: start_baseline("libm.cu", j, d) for j, d in enumerate(opts.baseline)}
-    sources = ["libm.cu", "lidar.cu", "libm_host.cpp"]
+    sources = ["libm.cu", "lidar.cu", "npc_move.cu", "libm_host.cpp"]
     started = [(s, native.start_build(s)) for s in sources]
     for s, st in started:
         native.finish_build(s, st)
@@ -879,7 +892,9 @@ def main() -> int:
         return 1
     phase("main", f"64x4, 100 steps: card run bit-equal to the CPU run ({len(runs['cpu'])} tensors)")
 
+    own = {}        # kernels only some phases launch: K2 (the NPC planner's move)
     for name, fn in (("graphs", graphs_phase), ("train", train_phase),
+                     ("npc_move", lambda dev, card, kernels: npc_move_phase(dev, card, own)),
                      ("traffic", traffic_phase),
                      ("policies", policies_phase), ("learners", learners_phase),
                      ("resume", resume_phase), ("gym", gym_phase),
@@ -890,7 +905,7 @@ def main() -> int:
         phase(name, f"phase done in {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"kernels": list(kernels.values()) + list(own.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
@@ -1764,6 +1779,166 @@ def traffic_turns(dev, card, kernels, model, label, lock=30, block=40, warmup=50
                      f"the kernels on the graphs' operands bit-equal to their plain versions: "
                      f"{held}; card {card}")
     return line
+
+
+NPC_MOVE_ENVS = 256         # envs of each of ops/npc_move_cases.py's cases on the card
+NPC_MOVE_TIERS = (-1, 16, 0)   # npc_tier: widths 8 (and 16 when crowded), 16, 32
+
+
+def k2_bound(B, S, M):
+    """K2's least time in ms and what bounds it: each planner's polyline,
+    pose, uid, path index and row of ``others`` read once and its six results
+    written once, the env's M poses read once; ~80 operations for each of its
+    M pair terms (three hypotf and a sincosf), ~10 for each of its 120
+    scanned points' distances and ~400 for the lookahead, the tick and the
+    path-index window, at the f32 peak."""
+    from marl_traffic_intersection_tpu_torch.core.constants import PATH_LEN
+
+    nbytes = B * S * (PATH_LEN * 8 + 7 * 4 + M + 6 * 4) + B * M * 20
+    ops = B * S * (M * 80 + 120 * 10 + 400)
+    by_bytes = nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S), \
+        "bytes" if by_bytes else "operations"
+
+
+@contextlib.contextmanager
+def moves_recorded():
+    """core/npc.py::_move wrapped while the block runs: ``.calls`` counts its
+    calls by (S, M), ``.args`` keeps a copy of the last arguments of each
+    (the cleanup rounds write the pool they read in place)."""
+    from marl_traffic_intersection_tpu_torch.core import npc as npc_module
+
+    move = npc_module._move
+    rec = types.SimpleNamespace(calls=collections.Counter(), args={})
+
+    def copy(a):
+        return tuple(map(copy, a)) if isinstance(a, tuple) else a.clone()
+
+    def recorded(*args):
+        key = (args[0].shape[1], args[8].shape[-1])
+        rec.calls[key] += 1
+        rec.args[key] = copy(args)
+        return move(*args)
+
+    npc_module._move = recorded
+    try:
+        yield rec
+    finally:
+        npc_module._move = move
+
+
+def npc_move_phase(dev, card, rows) -> int:
+    """Phase 6b (see the module docstring); K2's row goes to ``rows``; 1 on
+    failure."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.core.npc import move_ref
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.ops.npc_move_cases import CASES, case_args, on
+    from marl_traffic_intersection_tpu_torch.ops.npc_move_cuda import npc_move
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
+
+    def held(args, label):
+        """K2 once on ``args`` against move_ref on the card and on the CPU:
+        the failures."""
+        native.reset_launches()
+        got = npc_move(*args)
+        torch.cuda.synchronize()
+        bad = [] if native.LAUNCHES["npc_move"] == 1 else [f"{label}: {dict(native.LAUNCHES)}"]
+        for name, g, c, h in zip(("x", "y", "v", "heading", "steering_angle", "path_index"),
+                                 got, move_ref(*args), move_ref(*on(args, "cpu"))):
+            if not (bits_equal(g, c) and bits_equal(g, h)):
+                bad.append(f"{label} {name}: {int((g.cpu() != h).sum())} of {g.numel()} differ")
+        return bad
+
+    row = rows["npc_move"] = dict(
+        name="npc_move", route="cuda", source=SRC + "npc_move.cu",
+        replaces="none: core/npc.py::move_ref's ~200 launches (the JAX package's "
+                 "core/npc.py::_plan_npc_action, in XLA)",
+        **kernel_regs(ptxas_info(native.build_log("npc_move.cu")), "npc_move_kernel"))
+    bad = []
+    for kind, width in CASES:
+        bad += held(on(case_args(kind, width, NPC_MOVE_ENVS), dev), f"case {kind} w={width}")
+    if bad:
+        phase("npc_move", f"FAIL: {bad[:8]}")
+        return 1
+    phase("npc_move", f"K2 bit-equal to move_ref on the card and on the CPU, one launch a call, "
+                      f"on {len(CASES)} seeded cases ({NPC_MOVE_ENVS} envs: dense and slot at "
+                      f"w = 8, 16, 32, and the edge cases); {row['registers']} registers, "
+                      f"{row['spill_stores']} B spilled, {row['stack_bytes']} B stack")
+
+    # the traffic path's own arguments: config 4 at TRAFFIC_B x TRAFFIC_N, the
+    # exact mode narrowed (w = 8), at w = 16 and at the full width
+    rng = torch.Generator(device=dev).manual_seed(3)
+
+    def actions():
+        a = torch.rand((TRAFFIC_B, TRAFFIC_N, 2), generator=rng, device=dev)
+        return torch.stack([a[..., 0] * 0.8 + 0.2, a[..., 1] * 0.4 - 0.2], -1)
+
+    shapes = {}
+    for tier in NPC_MOVE_TIERS:
+        venv = VectorEnv(IntersectionEnv(EnvConfig(**TRAFFIC_CFG, npc_tier=tier), device=dev),
+                         num_envs=TRAFFIC_B, seed=4)
+        state, _ = venv.reset()
+        for _ in range(100):
+            state, _ = venv.step(state, actions())
+        with moves_recorded() as rec:
+            for _ in range(10):
+                state, _ = venv.step(state, actions())
+        for (S, M), args in rec.args.items():
+            shapes.setdefault((S, M), args)
+    for (S, M), args in sorted(shapes.items()):
+        label = f"{'dense' if S == M else 'slot'} {TRAFFIC_B}x{S} M={M}"
+        bad = held(args, label)
+        if bad:
+            phase("npc_move", f"FAIL on the traffic path's arguments: {bad}")
+            return 1
+        args_cpu = on(args, "cpu")
+        bound, bound_by = k2_bound(TRAFFIC_B, S, M)
+        ms = device_ms(lambda: npc_move(*args), 50, match="npc_move_kernel")
+        plain = profile_steps(lambda: move_ref(*args), 5)
+        t = dict(shape=label, ms=ms, event_ms=cuda_ms(lambda: npc_move(*args), 50),
+                 plain_ms=plain["device_busy_ms_per_step"],
+                 plain_launches=plain["kernel_launches_per_step"],
+                 plain_host_ms=host_ms(lambda: move_ref(*args_cpu), 1),
+                 bound_ms=bound, bound_by=bound_by)
+        row.setdefault("shapes", []).append(t)
+        phase("npc_move", f"{label} on the traffic path's arguments: bit-equal to move_ref on "
+                          f"the card and on the CPU; K2 device {ms:.5f} ms (events, with the "
+                          f"host, {t['event_ms']:.4f}); move_ref on the card "
+                          f"{t['plain_ms']:.4f} ms device in {t['plain_launches']:.0f} launches, "
+                          f"on the CPU {t['plain_host_ms']:.1f} ms; bound {bound:.5f} ms "
+                          f"({bound_by}), share {bound / ms:.1%}; card {card}")
+    if not {(8, 8), (16, 16), (32, 32)} <= set(shapes) or not any(S == 1 for S, _ in shapes):
+        phase("npc_move", f"FAIL: the traffic path called _move at {sorted(shapes)}")
+        return 1
+
+    # the graphed traffic step: one K2 launch per replay of the dense plan's
+    # segment and one per cleanup round
+    venv = VectorEnv(IntersectionEnv(EnvConfig(**TRAFFIC_CFG), device=dev),
+                     num_envs=TRAFFIC_B, seed=5)
+    state, _ = venv.reset()
+    gstep = venv.jit_step()
+    for _ in range(50):
+        state, _ = gstep(state, actions())
+    stats = venv.env.npc_stats
+    per_step = []
+    for _ in range(40):
+        native.reset_launches()
+        rounds = stats["cleanup_rounds"]
+        state, _ = gstep(state, actions())
+        per_step.append((native.LAUNCHES["npc_move"], stats["cleanup_rounds"] - rounds))
+    torch.cuda.synchronize()
+    wrong = [(n, r) for n, r in per_step if n != 1 + r]
+    row["launches_per_graphed_step"] = sum(n for n, _ in per_step) / len(per_step)
+    row["cleanup_rounds_per_graphed_step"] = sum(r for _, r in per_step) / len(per_step)
+    if wrong:
+        phase("npc_move", f"FAIL: K2 launches against cleanup rounds per graphed step {wrong}")
+        return 1
+    phase("npc_move", f"graphed config-4 step, {TRAFFIC_B}x{TRAFFIC_N}, 40 steps after 50: K2 "
+                      f"launches per step {row['launches_per_graphed_step']:.3f} = 1 + cleanup "
+                      f"rounds {row['cleanup_rounds_per_graphed_step']:.3f} at every step; "
+                      f"card {card}")
+    return 0
 
 
 def traffic_phase(dev, card, kernels) -> int:

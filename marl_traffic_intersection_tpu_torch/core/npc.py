@@ -45,7 +45,10 @@ graph of it, so both run one body and make the same reads.
 The float chain is the reference's, as everywhere in the port: trig,
 ``atan2f`` and ``hypotf`` from ops/libm.py, correctly rounded square roots,
 each product rounded before its add, divisions by tensors. Row fetches are
-index gathers, which keep a -0.0 spawn heading.
+index gathers, which keep a -0.0 spawn heading. On the card every set of
+planners (``_move``: the plan, the physics tick and the path index) is one
+launch of kernel K2 (ops/npc_move_cuda.py) on that chain; ``move_ref``, its
+plain version, is what the CPU runs.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ import torch
 from torch.autograd import _profiler_enabled as profiling
 
 from ..ops import libm
+from ..ops.npc_move_cuda import npc_move
 from .constants import (CAR_LENGTH, CAR_WIDTH, HEIGHT, LANE_WIDTH_PX, PATH_LEN,
                         PHYSICS_MAX_SPEED, PI_F, WIDTH)
 from .physics import (car_corners, car_physics_step, sat_overlap,
@@ -291,12 +295,21 @@ class _Moved(NamedTuple):
     path_index: torch.Tensor
 
 
-def _move(sx, sy, sv, sh, ss, su, pi0, path, others, pool, dt) -> _Moved:
-    """Plan, integrate and re-index the given planners (all (B, S))."""
+def move_ref(sx, sy, sv, sh, ss, su, pi0, path, others, pool, dt) -> _Moved:
+    """Plan, integrate and re-index the given planners (all (B, S)): the
+    plain version of kernel K2 (ops/npc_move_cuda.py), which the CPU runs
+    and the tests and chip_smoke.py hold the kernel to."""
     th, st = _plan(sx, sy, sv, sh, su, others, pi0, path, pool)
     o = car_physics_step(sx, sy, sv, sh, ss, th, st, dt)
     pi1 = update_path_index(path, PATH_LEN, pi0, o.x, o.y)
     return _Moved(o.x, o.y, o.v, o.heading, o.steering_angle, pi1)
+
+
+def _move(sx, sy, sv, sh, ss, su, pi0, path, others, pool, dt) -> _Moved:
+    """``move_ref``: on the CPU itself, on the card one launch of K2."""
+    if sx.device.type == "cpu":
+        return move_ref(sx, sy, sv, sh, ss, su, pi0, path, others, pool, dt)
+    return _Moved(*npc_move(sx, sy, sv, sh, ss, su, pi0, path, others, pool, dt))
 
 
 def _poses(npc: NpcState) -> _Moved:

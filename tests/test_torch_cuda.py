@@ -11,10 +11,13 @@ import pytest
 import torch
 
 from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
-from marl_traffic_intersection_tpu_torch.core.npc import stat_counts
+from marl_traffic_intersection_tpu_torch.core import npc
+from marl_traffic_intersection_tpu_torch.core.npc import move_ref, stat_counts
 from marl_traffic_intersection_tpu_torch.ops import libm, native
 from marl_traffic_intersection_tpu_torch.ops.lidar_cases import edge_inputs, fuzz_inputs
 from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
+from marl_traffic_intersection_tpu_torch.ops.npc_move_cases import CASES, case_args, on
+from marl_traffic_intersection_tpu_torch.ops.npc_move_cuda import npc_move
 
 pytestmark = pytest.mark.cuda
 
@@ -184,6 +187,46 @@ def test_k1_rejects_what_it_does_not_take(card):
     many = [a.to(card) for a in _env_batch(np.random.RandomState(2), 4, 2, 65)]
     with pytest.raises(ValueError):
         lidar_scan(*many)
+
+
+@pytest.mark.parametrize("kind,width", CASES)
+def test_npc_move_kernel_matches_the_plain_version(card, kind, width):
+    """K2, one launch, bit-equal to move_ref on the card and on the CPU."""
+    args = on(case_args(kind, width, envs=64), card)
+    native.reset_launches()
+    got = npc_move(*args)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["npc_move"] == 1
+    for g, c, h in zip(got, move_ref(*args), move_ref(*on(args, "cpu"))):
+        assert g.dtype == h.dtype and (_bits(g) == _bits(c)).all() and (_bits(g) == _bits(h)).all()
+
+
+def test_npc_move_kernel_replays_in_a_graph(card):
+    """_move captured in a CUDA graph launches K2 and replays it on new poses."""
+    args = on(case_args("dense", 16, envs=64), card)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        npc._move(*args)                    # loads the library outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = npc._move(*args)
+    args[0].add_(1.5)                       # the planners move; the pool does not
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(out, move_ref(*args)):
+        assert (_bits(g) == _bits(w)).all()
+
+
+def test_npc_move_rejects_what_it_does_not_take(card):
+    args = on(case_args("slot", 8), card)
+    with pytest.raises(ValueError, match="others"):
+        npc_move(*args[:8], args[8].to(torch.uint8), *args[9:])
+    with pytest.raises(ValueError, match="contiguous"):
+        npc_move(torch.cat([args[0], args[0]], 1)[:, :1], *args[1:])
+    with pytest.raises(ValueError, match="path"):
+        npc_move(*args[:7], args[7][:, :, :100], *args[8:])
 
 
 def test_env_on_the_card_equals_the_cpu(card):
