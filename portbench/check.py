@@ -122,13 +122,18 @@ class Recorder:
         rec.update(state_out=take_rows(state, rows), out=take_rows(tuple(out), rows),
                    out_fields=type(out)._fields, entries=entries)
         if self.full_poses is None:
-            npc = state.npc
-            self.full_poses = tuple(t.clone() for t in (
-                state.ego.x, state.ego.y, state.ego.heading, npc.x, npc.y, npc.heading,
-                npc.alive))
+            self.full_poses = poses(state)
 
     def done(self) -> bool:
         return all(k in self.taken and "out" in self.taken[k] for k in self.steps)
+
+
+def poses(state) -> tuple:
+    """Copies of every row's poses in ``state``: ego x, y, heading, NPC x, y,
+    heading, alive (the lidar's operands, run.py)."""
+    npc = state.npc
+    return tuple(t.clone() for t in (state.ego.x, state.ego.y, state.ego.heading,
+                                     npc.x, npc.y, npc.heading, npc.alive))
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
-"""The card's published peaks and the least time of the lidar march.
+"""The card's published peaks, the least time of the lidar march and a
+model's share of the peak.
 
 Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at its full 700 W power
-limit): 3.35 TB/s of HBM, 67 TFLOP/s in float32 outside the tensor cores.
+limit): 3.35 TB/s of HBM, 67 TFLOP/s in float32 outside the tensor cores,
+989.4 TFLOP/s dense on the tensor cores in bfloat16 and float16.
 
 The lidar's work, as counted for the port's kernel table: each marched
 sample takes about 20 float32 operations (the sample's position, the screen
@@ -46,3 +48,24 @@ def lidar_samples(operands, num_lanes: int, chunk: int = 256) -> int:
             _, samples = lidar_scan_ref(*part, num_lanes, return_samples=True)
             total += int(samples.sum())
     return total
+
+
+# dense peak of the products by the compute precision a configuration states
+# (float32: with TF32 off, outside the tensor cores)
+PEAK_FLOPS_PER_S = {"bfloat16": 989.4e12, "float16": 989.4e12, "float32": F32_OPS_PER_S}
+
+
+def update_flops(forward_flops: float, rows: int, rollout_len: int, epochs: int) -> float:
+    """The model FLOPs of one PPO train step's update: for each epoch a
+    forward of ``forward_flops`` per sample and a backward (twice the
+    forward) over the whole trajectory of ``rows`` (envs x agents) at each
+    of ``rollout_len`` steps."""
+    return forward_flops * rows * 3 * epochs * rollout_len
+
+
+def train_step_flops(forward_flops: float, rows: int, rollout_len: int, epochs: int) -> float:
+    """The model FLOPs of one PPO train step: the rollout's forward for each
+    row at every rollout step and once more for the last value, and the
+    update (``update_flops``)."""
+    return forward_flops * rows * (rollout_len + 1) \
+        + update_flops(forward_flops, rows, rollout_len, epochs)

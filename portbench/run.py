@@ -2,22 +2,26 @@
 
   python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
-The system under test is marl_traffic_intersection_tpu_torch: its batched
-env step with auto-reset, replayed as CUDA graphs (``VectorEnv.jit_step``).
-A run
+The system under test is marl_traffic_intersection_tpu_torch. The cell's
+traffic file names the entry that the window calls: its batched env step
+with auto-reset, replayed as CUDA graphs (``VectorEnv.jit_step``; the
+default, ``EnvStep`` below), or its PPO learner's train step
+(``"entry": "train_step"``, portbench/learner.py). ``run`` is the one shell
+of every run; an entry supplies only its set-up, one window step, the
+steps or spans after the window, the check and the end-to-end values. A run
 
   1. sets up: imports, loads the program's CUDA libraries (built into the
      checkout's ``marl_traffic_intersection_tpu_torch/_build/`` on a first
-     run), builds the env, draws every input from ``--seed``
-     (portbench/traffic.py), resets, steps twice from a crowded copy of the
-     state where the traffic file asks for one (``crowd``), and then the
-     traffic file's ``warmup_steps`` from the real state, which fill the
-     NPC pool and capture the graphs;
+     run), and the entry's set-up: for the env step it builds the env,
+     draws every input from ``--seed`` (portbench/traffic.py), resets,
+     steps twice from a crowded copy of the state where the traffic file
+     asks for one (``crowd``), and then the traffic file's ``warmup_steps``
+     from the real state, which fill the NPC pool and capture the graphs;
   2. steps for ``--seconds`` (window.py);
   3. with ``--trace 1``, profiles a block of steps after the window and
      times the program's lidar op on a window step's poses (trace.py);
-  4. frees the program and checks what the window produced against the
-     plain reference (check.py);
+  4. frees the program and checks what the timed path produced against the
+     plain reference (check.py for the env step);
   5. prints the result as its last line of standard output, after the
      card's name and power limit (read once the run is done, so that it
      costs the set-up nothing), the set-up's split and the check's
@@ -77,27 +81,64 @@ def card_line() -> str:
         return "not read"
 
 
+class Splits:
+    """The set-up's split: ``split(name)`` notes the seconds since the last
+    call (or since it was made) under ``name`` in ``t``."""
+
+    def __init__(self, t: dict):
+        self.t, self.last = t, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.t[name] = now - self.last
+        self.last = now
+
+
+def entry_of(cell):
+    """The entry class that the cell's traffic file names (``entry``; by
+    default the env step)."""
+    name = cell.traffic.get("entry", "env_step")
+    if name == "env_step":
+        return EnvStep
+    if name == "train_step":
+        from .learner import TrainStep
+        return TrainStep
+    raise ValueError(f"traffic file: no entry {name!r}")
+
+
+def graph_snapshot(step):
+    """A copy of ``step.graphs`` (its graphs by name), or None where the step
+    keeps none. The copy holds the graphs, so that a graph captured later
+    is told from them by identity, whether the program hands out its live
+    dict or builds a new one at each read."""
+    graphs = getattr(step, "graphs", None)
+    return None if graphs is None else dict(graphs)
+
+
+def graph_counts(before, step) -> tuple:
+    """(graphs at the window's start, that count plus the graphs that
+    ``step.graphs`` holds now and ``before`` did not); (None, None) where
+    the step keeps no graphs."""
+    if before is None:
+        return None, None
+    known = {id(g) for g in before.values()}
+    return len(before), len(before) + sum(id(g) not in known
+                                          for g in graph_snapshot(step).values())
+
+
 def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda") -> dict:
     """One run of ``cell`` (spec.Cell); returns the result line's object and
     the notes printed before it. ``device="cpu"`` drives the same run
     without a card (the tests), timing steps on the host's clock."""
     t = {"before_run_s": since_start()}
-    clock_start = time.perf_counter()
-
-    def split(name):
-        nonlocal clock_start
-        now = time.perf_counter()
-        t[name] = now - clock_start
-        clock_start = now
+    split = Splits(t)
 
     import torch
 
-    from marl_traffic_intersection_tpu_torch.core.env import EnvConfig, IntersectionEnv
-    from marl_traffic_intersection_tpu_torch.envs.vector import VectorEnv
     from marl_traffic_intersection_tpu_torch.ops import native
 
-    from . import check, traffic, window
-    from .reference import vector as ref_vector
+    from . import window
+    Entry = entry_of(cell)
     split("import_s")
 
     dev = torch.device(device)
@@ -107,120 +148,46 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda") -> d
             native.load(source)
     split("kernel_load_s")
 
-    tr = traffic.validate(cell.traffic)
-    env_cfg = cell.env_config()
-    B = cell.num_envs
-    env = IntersectionEnv(EnvConfig(**env_cfg), device=dev)
-    split("env_build_s")
-
-    ref = check.reference_env(env_cfg)
-    inputs = traffic.make_inputs(tr, B, env.config.num_agents, env.config.max_steps,
-                                 ref_vector.route_pool(ref), int(ref.traffic_ids.shape[0]),
-                                 seed, dev)
-    split("inputs_s")
-    venv = VectorEnv(env, B, route_sampler=inputs.routes, spawn_sampler=inputs.spawns)
-    step = venv.jit_step()
-    state, obs = venv.reset()
-    rows = torch.as_tensor(inputs.check_rows, dtype=torch.long, device=dev)
-    start = (check.take_rows(state, rows), obs.index_select(0, rows),
-             inputs.routes.entry(inputs.routes.last).index_select(0, rows).to("cpu"))
-    if inputs.step_count is not None:
-        state = state._replace(step_count=inputs.step_count.clone())
-    rec = check.Recorder(inputs.check_steps, inputs.check_rows,
-                         tr["check"].get("busiest", 0), dev, tr["check"].get("ending", 0))
-    if on_card:
-        torch.cuda.synchronize()
-    split("reset_s")
-
-    g = 0                           # steps taken since the reset
-    Ka = inputs.actions.shape[0]
-
-    def widths():
-        return {name: n for name, n in env.npc_stats.items() if name.startswith("step_width_")}
-
-    def one(k=None):
-        """One step; ``k`` is its index in the window (None outside)."""
-        nonlocal state, g
-        posed = k is not None and rec.full_poses is None and rec.pending(k)
-        before = widths() if posed else None
-        if k is not None:
-            rec.before(k, state)
-        state, out = step(state, inputs.actions[g % Ka])
-        if k is not None:
-            rec.after(k, state, out, {"actions": g % Ka, "routes": inputs.routes.last,
-                                      "spawns": inputs.spawns.last if inputs.spawns else None})
-        if posed and rec.full_poses is not None:
-            # the NPC width the program stepped these poses at (its own counter)
-            rec.pose_width = next((int(name[len("step_width_"):])
-                                   for name, n in widths().items()
-                                   if n > before.get(name, 0)), None)
-        g += 1
-
-    if tr["crowd"]:
-        real = check.clone(state)
-        state = traffic.crowded(real, tr["crowd"], ref)
-        for _ in range(2):
-            one()
-        state = real
-    half, t_half = tr["warmup_steps"] // 2, time.perf_counter()
-    for i in range(tr["warmup_steps"]):
-        if i == half:
-            if on_card:
-                torch.cuda.synchronize()
-            t_half = time.perf_counter()
-        one()
-    if on_card:
-        torch.cuda.synchronize()
-    warm_rate = (tr["warmup_steps"] - half) / max(time.perf_counter() - t_half, 1e-9)
-    graphs = getattr(step, "graphs", None)
+    entry = Entry(cell, seed, dev, split)       # builds, draws, resets, warms up
+    graphs = graph_snapshot(entry.step)
     capture_s = sum(gr.capture_s for gr in graphs.values()) if graphs is not None else None
     t["captures_s"] = capture_s
-    clock = window.CudaClock(window.event_pool_size(warm_rate, seconds)) if on_card \
+    clock = window.CudaClock(window.event_pool_size(entry.warm_rate, seconds)) if on_card \
         else window.HostClock()
     split("warmup_s")           # the captures included
-    graphs_before = len(graphs) if graphs is not None else None
-    stats_before = dict(env.npc_stats)
+    entry.opened()
     if on_card:
         torch.cuda.synchronize()
     setup_s = since_start()
 
-    win = window.measure(one, seconds, clock)
+    win = window.measure(entry.one, seconds, clock)
 
     peak = torch.cuda.max_memory_reserved(dev) if on_card else 0
-    graphs_after = len(graphs) if graphs is not None else None
-    stats = {k: v - stats_before.get(k, 0) for k, v in env.npc_stats.items()
-             if not k.endswith("_max")}
-    k, t_post = win.steps, time.perf_counter()
-    while not rec.done() and time.perf_counter() - t_post < POST_WINDOW_S:
-        one(k)
-        k += 1
+    graphs_before, graphs_after = graph_counts(graphs, entry.step)
+    entry.closed(win.steps, trace)
     profile = None
     if trace:
         from .trace import profile_block
-        profile = profile_block(lambda _: one(), tr["profile_steps"])
-    poses, pose_width = rec.full_poses, rec.pose_width
-    del step, venv, env, state, graphs
+        profile = profile_block(lambda _: entry.one(), entry.profile_steps)
+    poses, pose_width = entry.poses, entry.pose_width
+    entry.free()
+    del graphs
     gc.collect()
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    lidar = lidar_readings(poses, pose_width, env_cfg) \
+    lidar = lidar_readings(poses, pose_width, entry.env_cfg) \
         if trace and on_card and poses is not None else None
 
     t_check = time.perf_counter()
-    if rec.done():
-        readings = check.run_check(ref, rec, start, inputs)
-    else:
-        missing = sorted(set(inputs.check_steps) - set(rec.taken))
-        readings = {**dict.fromkeys(check.LIMITS, -1), "steps": 0, "failed_env_steps": 0,
-                    "episode_ends": 0, "never_came": missing}
+    readings, correct = entry.check()
     check_s = time.perf_counter() - t_check
-    correct = rec.done() and check.verdict(readings)
 
-    r = types.SimpleNamespace(num_envs=B, steps=win.steps, npc_stats=stats,
-                              graphs_before=graphs_before, graphs_after=graphs_after,
-                              capture_s=capture_s, profile=profile, lidar=lidar)
+    r = types.SimpleNamespace(steps=win.steps, wall_s=win.wall_s, graphs_before=graphs_before,
+                              graphs_after=graphs_after, capture_s=capture_s, profile=profile,
+                              lidar=lidar)
+    vars(r).update(entry.reader_fields(profile))
     if trace:
         from . import spec
         metrics = {}
@@ -229,15 +196,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda") -> d
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
-        e2e = {"env_steps_per_s": window.env_steps_per_s(win, B),
-               "step_ms_p95": window.step_ms_p95(win),
-               "peak_mem_mib": peak / 2 ** 20, "setup_s": setup_s}
+        e2e = entry.end_to_end(win, peak, setup_s)
         metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
                    for m in cell.end_to_end}
     device_info = {"platform": "gpu" if on_card else "cpu",
                    "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
                    "count": 1, "memory_peak_bytes": int(peak)}
-    line = {"correct": bool(correct), "attempted": win.steps * B,
+    line = {"correct": bool(correct), "attempted": win.steps * entry.rows_per_step,
             "failed": int(readings["failed_env_steps"]), "metrics": metrics,
             "device": device_info}
     if profile is not None:
@@ -245,21 +210,171 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda") -> d
         line["breakdown"] = {"device_ops": profile["top_ops"],
                              "idle_gaps": profile["idle_gaps"]}
     line["checks"] = {name: {"value": readings[name], "limit": limit}
-                      for name, limit in check.LIMITS.items()}
+                      for name, limit in entry.LIMITS.items()}
     notes = {"setup_split": t, "setup_s": setup_s,
-             "window": {"steps": win.steps, "wall_s": win.wall_s, "npc_stats": stats,
+             "window": {"steps": win.steps, "wall_s": win.wall_s, **entry.window_notes(),
                         "graphs": [graphs_before, graphs_after],
                         "period_ms_p50_p95_p99_max": window.quantiles(win)},
-             "check": {"seconds": check_s,
-                       "rows": len(inputs.check_rows) + tr["check"].get("ending", 0)
-                       + tr["check"].get("busiest", 0),
-                       "steps": inputs.check_steps, "post_window_steps": k - win.steps,
-                       "readings": readings}}
+             "check": {"seconds": check_s, **entry.check_notes(), "readings": readings}}
     if trace:
-        notes["trace"] = {"lidar": lidar, "profile": None if profile is None else {
-            key: profile[key] for key in ("steps", "window_s", "device_ops", "device_s",
-                                          "busy_s")}}
-    return {"line": line, "notes": notes, "checked": (ref, rec, start, inputs)}
+        notes["trace"] = {"lidar": lidar, **entry.trace_notes(), "profile": None
+                          if profile is None else {key: profile[key] for key in (
+                              "steps", "window_s", "device_ops", "device_s", "busy_s")}}
+    return {"line": line, "notes": notes, "checked": entry.checked()}
+
+
+class EnvStep:
+    """The env step's entry (``VectorEnv.jit_step()``): set-up, one window
+    step, the check, the end-to-end values. The run's shell is ``run``."""
+
+    def __init__(self, cell, seed: int, dev, split):
+        import torch
+
+        from marl_traffic_intersection_tpu_torch.core.env import EnvConfig, IntersectionEnv
+        from marl_traffic_intersection_tpu_torch.envs.vector import VectorEnv
+
+        from . import check, traffic
+        from .reference import vector as ref_vector
+
+        self.on_card = on_card = dev.type == "cuda"
+        self.tr = tr = traffic.validate(cell.traffic)
+        self.env_cfg = env_cfg = cell.env_config()
+        self.rows_per_step = B = cell.num_envs
+        self.env = env = IntersectionEnv(EnvConfig(**env_cfg), device=dev)
+        split("env_build_s")
+
+        self.ref = ref = check.reference_env(env_cfg)
+        self.inputs = inputs = traffic.make_inputs(
+            tr, B, env.config.num_agents, env.config.max_steps, ref_vector.route_pool(ref),
+            int(ref.traffic_ids.shape[0]), seed, dev)
+        split("inputs_s")
+        # what lives how long is as it always was, since the allocator's peak
+        # depends on it: the reset's observation, the checked rows and the
+        # crowded warm-up's real state live as long as the run, and no name
+        # but ``self.state`` holds a state that the warm-up steps past
+        self.venv = venv = VectorEnv(env, B, route_sampler=inputs.routes,
+                                     spawn_sampler=inputs.spawns)
+        self.step = venv.jit_step()
+        self.state, self.obs = venv.reset()
+        self.rows = rows = torch.as_tensor(inputs.check_rows, dtype=torch.long, device=dev)
+        self.start = (check.take_rows(self.state, rows), self.obs.index_select(0, rows),
+                      inputs.routes.entry(inputs.routes.last).index_select(0, rows).to("cpu"))
+        if inputs.step_count is not None:
+            self.state = self.state._replace(step_count=inputs.step_count.clone())
+        self.rec = check.Recorder(inputs.check_steps, inputs.check_rows,
+                                  tr["check"].get("busiest", 0), dev,
+                                  tr["check"].get("ending", 0))
+        if on_card:
+            torch.cuda.synchronize()
+        split("reset_s")
+
+        self.g = 0                  # steps taken since the reset
+        if tr["crowd"]:
+            self.real = check.clone(self.state)
+            self.state = traffic.crowded(self.real, tr["crowd"], ref)
+            for _ in range(2):
+                self.one()
+            self.state = self.real
+        half, t_half = tr["warmup_steps"] // 2, time.perf_counter()
+        for i in range(tr["warmup_steps"]):
+            if i == half:
+                if on_card:
+                    torch.cuda.synchronize()
+                t_half = time.perf_counter()
+            self.one()
+        if on_card:
+            torch.cuda.synchronize()
+        self.warm_rate = (tr["warmup_steps"] - half) / max(time.perf_counter() - t_half, 1e-9)
+        self.profile_steps = tr["profile_steps"]
+
+    @property
+    def LIMITS(self) -> dict:
+        from .check import LIMITS
+        return LIMITS
+
+    def _widths(self) -> dict:
+        return {name: n for name, n in self.env.npc_stats.items()
+                if name.startswith("step_width_")}
+
+    def one(self, k=None) -> None:
+        """One step; ``k`` is its index in the window (None outside)."""
+        rec, inputs = self.rec, self.inputs
+        posed = k is not None and rec.full_poses is None and rec.pending(k)
+        before = self._widths() if posed else None
+        if k is not None:
+            rec.before(k, self.state)
+        self.state, out = self.step(self.state, inputs.actions[self.g % inputs.actions.shape[0]])
+        if k is not None:
+            rec.after(k, self.state, out, {
+                "actions": self.g % inputs.actions.shape[0], "routes": inputs.routes.last,
+                "spawns": inputs.spawns.last if inputs.spawns else None})
+        if posed and rec.full_poses is not None:
+            # the NPC width the program stepped these poses at (its own counter)
+            rec.pose_width = next((int(name[len("step_width_"):])
+                                   for name, n in self._widths().items()
+                                   if n > before.get(name, 0)), None)
+        self.g += 1
+
+    def opened(self) -> None:
+        self.stats_before = dict(self.env.npc_stats)
+
+    def closed(self, steps: int, trace: bool) -> None:
+        """After the window: the counters' change, and the steps after it
+        that the check still waits for."""
+        self.stats = {k: v - self.stats_before.get(k, 0) for k, v in self.env.npc_stats.items()
+                      if not k.endswith("_max")}
+        k, t_post = steps, time.perf_counter()
+        while not self.rec.done() and time.perf_counter() - t_post < POST_WINDOW_S:
+            self.one(k)
+            k += 1
+        self.post_window_steps = k - steps
+
+    @property
+    def poses(self):
+        return self.rec.full_poses
+
+    @property
+    def pose_width(self):
+        return self.rec.pose_width
+
+    def free(self) -> None:
+        del self.step, self.venv, self.env, self.state
+
+    def check(self) -> tuple:
+        from . import check
+
+        rec, inputs = self.rec, self.inputs
+        if rec.done():
+            readings = check.run_check(self.ref, rec, self.start, inputs)
+        else:
+            missing = sorted(set(inputs.check_steps) - set(rec.taken))
+            readings = {**dict.fromkeys(check.LIMITS, -1), "steps": 0, "failed_env_steps": 0,
+                        "episode_ends": 0, "never_came": missing}
+        return readings, rec.done() and check.verdict(readings)
+
+    def reader_fields(self, profile) -> dict:
+        return {"num_envs": self.rows_per_step, "npc_stats": self.stats}
+
+    def end_to_end(self, win, peak: int, setup_s: float) -> dict:
+        from . import window
+        return {"env_steps_per_s": window.env_steps_per_s(win, self.rows_per_step),
+                "step_ms_p95": window.step_ms_p95(win), "peak_mem_mib": peak / 2 ** 20,
+                "setup_s": setup_s}
+
+    def window_notes(self) -> dict:
+        return {"npc_stats": self.stats}
+
+    def check_notes(self) -> dict:
+        tr = self.tr
+        return {"rows": len(self.inputs.check_rows) + tr["check"].get("ending", 0)
+                + tr["check"].get("busiest", 0),
+                "steps": self.inputs.check_steps, "post_window_steps": self.post_window_steps}
+
+    def trace_notes(self) -> dict:
+        return {}
+
+    def checked(self) -> tuple:
+        return (self.ref, self.rec, self.start, self.inputs)
 
 
 def lidar_readings(poses, width, env_cfg: dict):

@@ -4,7 +4,9 @@ Everything that belongs to one configuration, one traffic mix or one
 per-layer metric is a file of its own, found by its name:
 
   * a configuration: the ``file`` its entry names (portbench/configs/);
-  * a traffic mix: ``portbench/traffic/<traffic>.json``;
+  * a traffic mix: ``portbench/traffic/<traffic>.json``, whose ``entry``
+    names what the window calls: the env step (no key) or the learner's
+    train step (``"train_step"``, portbench/learner.py);
   * a per-layer metric: ``portbench/metrics/<name>.py``, whose ``read(r)``
     takes the run's readings (run.py) and returns the value, or None when it
     finds nothing to read.
@@ -23,6 +25,9 @@ PKG = pathlib.Path(__file__).resolve().parent
 ROOT = PKG.parent
 # keys of a configuration file that describe it and are not run
 CONFIG_NOTES = {"assumed", "deployment", "notes"}
+# keys of a configuration file that the env does not take: the batch, and
+# the learner of a train-step cell (portbench/learner.py)
+NOT_ENV = {"num_envs", "learner"}
 
 
 @dataclass
@@ -42,7 +47,7 @@ class Cell:
     def env_config(self) -> dict:
         """The configuration's keys that the env takes."""
         return {k: v for k, v in self.config.items()
-                if k not in CONFIG_NOTES and k != "num_envs"}
+                if k not in CONFIG_NOTES and k not in NOT_ENV}
 
 
 def _reports(metric: dict, cell: str) -> bool:
