@@ -177,9 +177,12 @@ def reference_env(env_config: dict) -> ref_env.IntersectionEnv:
 
 
 def step_inputs(inputs, entries: dict, rows: torch.Tensor):
-    """The checked rows of the bank entries that fed one step, on the CPU."""
+    """The checked rows of the bank entries that fed one step, on the CPU;
+    the step's actions are the checked rows' own where the recorder kept
+    them (a tensor under ``actions``), else an entry of the action bank."""
     r = rows.to("cpu")
-    actions = inputs.actions[entries["actions"]].to("cpu")[r]
+    kept = entries["actions"]
+    actions = kept.to("cpu") if torch.is_tensor(kept) else inputs.actions[kept].to("cpu")[r]
     routes = inputs.routes.entry(entries["routes"]).to("cpu")[r]
     spawn = None
     if inputs.spawns is not None:
@@ -201,12 +204,15 @@ def reference_step(ref, rec: dict, inputs, transform=None):
     return new_state, out._asdict()
 
 
-def run_check(ref, recorder: Recorder, start: Optional[tuple], inputs) -> dict:
+def run_check(ref, recorder: Recorder, start: Optional[tuple], inputs,
+              also_failed: Optional[dict] = None) -> dict:
     """The readings of a run: for each number of LIMITS, the sum over the
     checked steps (``start`` over the reset); plus ``steps``,
-    ``failed_env_steps``, the checked env transitions that differ anywhere,
-    and ``episode_ends``, the checked envs whose episode the reference ends
-    in a checked step, so that the step merges a fresh one into them."""
+    ``failed_env_steps``, the checked env transitions that differ anywhere
+    (with ``also_failed``, a checked step's row mask of transitions that
+    another check of the entry failed, those too), and ``episode_ends``,
+    the checked envs whose episode the reference ends in a checked step, so
+    that the step merges a fresh one into them."""
     total = dict.fromkeys(LIMITS, 0)
     failed = ends = 0
     if start is not None:
@@ -221,7 +227,10 @@ def run_check(ref, recorder: Recorder, start: Optional[tuple], inputs) -> dict:
         ref_state, ref_out = reference_step(ref, rec, inputs)
         for name, n in grouped(state, out, ref_state, ref_out).items():
             total[name] += n
-        failed += failed_rows(state, out, ref_state, ref_out)
+        bad = failed_mask(state, out, ref_state, ref_out)
+        if also_failed is not None and k in also_failed:
+            bad = also_failed[k] if bad is None else bad | also_failed[k]
+        failed += int(bad.sum()) if bad is not None else 0
         ended = (ref_out["terminated"] | ref_out["truncated"]).tolist()
         ends += len({r for r, e in zip(rec["rows"].tolist(), ended) if e})
     return {**total, "steps": len(recorder.steps), "failed_env_steps": failed,
@@ -230,16 +239,24 @@ def run_check(ref, recorder: Recorder, start: Optional[tuple], inputs) -> dict:
 
 def failed_rows(state, out: dict, ref_state, ref_out: dict) -> int:
     """How many env rows of one step differ from the reference anywhere."""
+    bad = failed_mask(state, out, ref_state, ref_out)
+    return int(bad.sum()) if bad is not None else 0
+
+
+def failed_mask(state, out: dict, ref_state, ref_out: dict) -> Optional[torch.Tensor]:
+    """The env rows of one step that differ from the reference anywhere, as a
+    mask (every row where a leaf's shape or type differs; None without
+    leaves)."""
     bad = None
     pairs = [(state, ref_state)] + [((out.get(f),), (ref_out[f],)) for f in ref_out]
     for a, b in pairs:
         for x, y in zip(_leaves(a), _leaves(b)):
             if x.shape != y.shape or x.dtype != y.dtype:
-                return int(x.shape[0]) if x.dim() else 1
+                return torch.ones(x.shape[0] if x.dim() else 1, dtype=torch.bool)
             d = (_bits(x) != _bits(y)).reshape(x.shape[0], -1).any(1) if x.dim() \
                 else (_bits(x) != _bits(y)).reshape(1)
             bad = d if bad is None else bad | d
-    return int(bad.sum()) if bad is not None else 0
+    return bad
 
 
 def _leaves(tree) -> list:

@@ -51,7 +51,7 @@ class Bf16:
 def readings(checked, kind: str) -> dict:
     """The numbers compared over a run's checked steps, the program's
     (``kind="program"``) or a control's in its place."""
-    ref, rec, _, inputs = checked
+    ref, rec, _, inputs = checked[:4]
     if kind == "program":
         return {k: v for k, v in check.run_check(ref, rec, None, inputs).items()
                 if k != "start"}

@@ -3,12 +3,15 @@
   python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The system under test is marl_traffic_intersection_tpu_torch. The cell's
-traffic file names the entry that the window calls: its batched env step
-with auto-reset, replayed as CUDA graphs (``VectorEnv.jit_step``; the
-default, ``EnvStep`` below), or its PPO learner's train step
-(``"entry": "train_step"``, portbench/learner.py). ``run`` is the one shell
-of every run; an entry supplies only its set-up, one window step, the
-steps or spans after the window, the check and the end-to-end values. A run
+traffic file names the entry that the window calls (``entry``, by default
+``env_step``), and the entry is found by that name among the files of
+portbench/entries/: ``<name>.py`` exports its class as ``Entry``. The env
+step's entry is ``EnvStep`` below (the program's batched env step with
+auto-reset, replayed as CUDA graphs, ``VectorEnv.jit_step``), the PPO
+learner's train step is portbench/learner.py's, and a later entry is a new
+file there. ``run`` is the one shell of every run; an entry supplies only
+its set-up, one window step, the steps or spans after the window, the check
+and the end-to-end values. A run
 
   1. sets up: imports, loads the program's CUDA libraries (built into the
      checkout's ``marl_traffic_intersection_tpu_torch/_build/`` on a first
@@ -96,14 +99,10 @@ class Splits:
 
 def entry_of(cell):
     """The entry class that the cell's traffic file names (``entry``; by
-    default the env step)."""
-    name = cell.traffic.get("entry", "env_step")
-    if name == "env_step":
-        return EnvStep
-    if name == "train_step":
-        from .learner import TrainStep
-        return TrainStep
-    raise ValueError(f"traffic file: no entry {name!r}")
+    default ``env_step``): ``Entry`` of ``portbench/entries/<entry>.py``
+    under the cell's root. ValueError where no such file is there."""
+    from . import spec
+    return spec.entry(cell.traffic.get("entry", "env_step"), cell.root)
 
 
 def graph_snapshot(step):
@@ -270,11 +269,12 @@ class EnvStep:
 
         self.g = 0                  # steps taken since the reset
         if tr["crowd"]:
-            self.real = check.clone(self.state)
+            self.real, real_obs = check.clone(self.state), self.obs
             self.state = traffic.crowded(self.real, tr["crowd"], ref)
             for _ in range(2):
                 self.one()
-            self.state = self.real
+            self.state, self.obs = self.real, real_obs
+            del real_obs
         half, t_half = tr["warmup_steps"] // 2, time.perf_counter()
         for i in range(tr["warmup_steps"]):
             if i == half:
@@ -296,6 +296,15 @@ class EnvStep:
         return {name: n for name, n in self.env.npc_stats.items()
                 if name.startswith("step_width_")}
 
+    def act(self, k=None) -> tuple:
+        """The step's actions, and what names them for the check (check.py's
+        ``step_inputs``): their entry in the traffic's action bank."""
+        i = self.g % self.inputs.actions.shape[0]
+        return self.inputs.actions[i], i
+
+    def observed(self, out) -> None:
+        """What the step returned, for an entry that acts on it."""
+
     def one(self, k=None) -> None:
         """One step; ``k`` is its index in the window (None outside)."""
         rec, inputs = self.rec, self.inputs
@@ -303,11 +312,13 @@ class EnvStep:
         before = self._widths() if posed else None
         if k is not None:
             rec.before(k, self.state)
-        self.state, out = self.step(self.state, inputs.actions[self.g % inputs.actions.shape[0]])
+        actions, named = self.act(k)
+        self.state, out = self.step(self.state, actions)
         if k is not None:
             rec.after(k, self.state, out, {
-                "actions": self.g % inputs.actions.shape[0], "routes": inputs.routes.last,
+                "actions": named, "routes": inputs.routes.last,
                 "spawns": inputs.spawns.last if inputs.spawns else None})
+        self.observed(out)
         if posed and rec.full_poses is not None:
             # the NPC width the program stepped these poses at (its own counter)
             rec.pose_width = next((int(name[len("step_width_"):])

@@ -5,8 +5,12 @@ per-layer metric is a file of its own, found by its name:
 
   * a configuration: the ``file`` its entry names (portbench/configs/);
   * a traffic mix: ``portbench/traffic/<traffic>.json``, whose ``entry``
-    names what the window calls: the env step (no key) or the learner's
-    train step (``"train_step"``, portbench/learner.py);
+    names what the window calls (by default ``env_step``);
+  * an entry: ``portbench/entries/<entry>.py``, whose class ``Entry`` sets
+    the cell up, takes one window step and checks what it produced (the env
+    step, run.py's ``EnvStep``; the learner's train step, learner.py's
+    ``TrainStep``; the env step with a trained policy acting,
+    entries/policy_step.py);
   * a per-layer metric: ``portbench/metrics/<name>.py``, whose ``read(r)``
     takes the run's readings (run.py) and returns the value, or None when it
     finds nothing to read.
@@ -19,6 +23,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import pathlib
+import re
 from dataclasses import dataclass
 
 PKG = pathlib.Path(__file__).resolve().parent
@@ -28,6 +33,8 @@ CONFIG_NOTES = {"assumed", "deployment", "notes"}
 # keys of a configuration file that the env does not take: the batch, and
 # the learner of a train-step cell (portbench/learner.py)
 NOT_ENV = {"num_envs", "learner"}
+# an entry's name: a Python identifier, so that it names a file of entries/ and nothing else
+ENTRY_NAME = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
 
 
 @dataclass
@@ -79,3 +86,20 @@ def reader(name: str, root: pathlib.Path = ROOT):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def entry(name: str, root: pathlib.Path = ROOT):
+    """The class ``Entry`` of ``portbench/entries/<name>.py`` under ``root``:
+    the package's own module where ``root`` is this checkout's, else the
+    file executed afresh as a module of the package's ``entries``, so that
+    its relative imports reach the harness. ValueError where no such file
+    is there."""
+    path = pathlib.Path(root) / "portbench" / "entries" / f"{name}.py"
+    if not isinstance(name, str) or not ENTRY_NAME.fullmatch(name) or not path.is_file():
+        raise ValueError(f"traffic file: no entry {name!r}")
+    if path.resolve() == (PKG / "entries" / f"{name}.py").resolve():
+        return importlib.import_module(f"{__package__}.entries.{name}").Entry
+    spec = importlib.util.spec_from_file_location(f"{__package__}.entries.{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.Entry

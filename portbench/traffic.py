@@ -4,8 +4,9 @@
 A run's inputs are drawn on the device in a few large calls before the
 window, into banks that the window cycles through:
 
-  * actions: each component a standard normal, as an untrained PPO policy
-    samples them (its log-std starts at 0);
+  * actions (where ``banks`` has ``actions``): each component a standard
+    normal, as an untrained PPO policy samples them (its log-std starts at
+    0); a mix whose actions a policy computes has no action bank;
   * routes: each env's N agents drawn from the route pool without
     replacement, for the reset and for every auto-reset;
   * NPC spawns (``density`` not null): the reference's law
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 DT = 1.0 / 60.0       # the reference's fixed step (cpp/constants.h:9)
-_KEYS = {"density", "warmup_steps", "crowd", "banks", "stagger_episodes", "check",
+_KEYS = {"entry", "density", "warmup_steps", "crowd", "banks", "stagger_episodes", "check",
          "profile_steps", "why"}
 
 
@@ -54,7 +55,7 @@ def seed64(seed: int) -> int:
 def validate(traffic: dict) -> dict:
     """``traffic`` (a traffic file's object) with its keys checked."""
     unknown = set(traffic) - _KEYS
-    missing = _KEYS - {"why"} - set(traffic)
+    missing = _KEYS - {"entry", "why"} - set(traffic)
     if unknown or missing:
         raise ValueError(f"traffic file: unknown keys {sorted(unknown)}, "
                          f"missing {sorted(missing)}")
@@ -92,7 +93,7 @@ class Sampler:
 class Inputs:
     """Everything a run feeds the program, drawn from one seed."""
 
-    actions: torch.Tensor            # (Ka, B, N, 2) float32
+    actions: Optional[torch.Tensor]  # (Ka, B, N, 2) float32, or None (no action bank)
     routes: Sampler                  # over (Kr, B, N) int32
     spawns: Optional[Sampler]        # over ((Ks, B) bool, (Ks, B) int32), or None
     step_count: Optional[torch.Tensor]   # (B,) int32 episode phases, or None
@@ -108,7 +109,8 @@ def make_inputs(traffic: dict, num_envs: int, num_agents: int, max_steps: int,
     g = torch.Generator(device=dev).manual_seed(seed64(seed))
     banks = traffic["banks"]
     B, N = num_envs, num_agents
-    actions = torch.randn((banks["actions"], B, N, 2), generator=g, device=dev)
+    actions = torch.randn((banks["actions"], B, N, 2), generator=g, device=dev) \
+        if "actions" in banks else None
     pool = torch.as_tensor(route_pool, dtype=torch.int32, device=dev)
     if pool.shape[0] < N:
         raise ValueError(f"{pool.shape[0]} routes in the pool for {N} agents")
