@@ -2,6 +2,7 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --baseline DIR [DIR ...]  # also times DIR/lidar.cu, DIR/libm.cu
+  python3 chip_smoke.py --phases ego_step graphs  # phases 1-5, then only these
 
 Phases, one line each; any failure exits nonzero:
   1. device   the card's name, count, and nvidia-smi's name and power limit;
@@ -87,6 +88,16 @@ Phases, one line each; any failure exits nonzero:
               operations; ptxas's registers and spills. Last, 40 graphed
               config-4 steps (jit_step) after 50: K2's launches in each step
               equal 1 + that step's cleanup rounds
+  6c. ego_step  K3, the ego tick (csrc/ego_step.cu), against its plain
+              version core/env.py::ego_step_ref on the card (NaNs as NaNs),
+              one launch a call: on ops/ego_step_cases.py's cases at 64 envs
+              and at 4096 x 4 (w = 0) and 4096 x 8 (w = 8, 16); then on the
+              arguments the main path last passed in 10 eager steps after 100
+              at 4096 x 4 without NPCs and at 4096 x 8 among NPCs (npc_tier
+              -1 and 16: w = 8 and 16): K3's device time beside
+              ego_step_ref's device time and launches on the card, and the
+              bound from bytes; ptxas's registers and spills. Last, 40
+              graphed config-4 steps: one K3 launch in each
   7. traffic  BASELINE config 4 (8 agents, density 1.0, 32 NPC slots, exact
               NPC mode) at 4096 envs for 200 steps with the bf16 MLP in the
               loop, spawns drawn on the card, four times in turns: the pool
@@ -563,6 +574,10 @@ def main() -> int:
                     help="directories each holding another lidar.cu and libm.cu (and the "
                          "headers they include), e.g. csrc/ of an earlier commit; each kernel "
                          "is checked and timed in turns with this one's")
+    ap.add_argument("--phases", metavar="NAME", nargs="+", default=None,
+                    help="run only these of the phases after main (graphs, train, npc_move, "
+                         "ego_step, traffic, policies, learners, resume, gym, planning, "
+                         "distributed)")
     opts = ap.parse_args()
 
     # ---- 1. device
@@ -592,7 +607,7 @@ def main() -> int:
     # other lidar.cu and libm.cu files, built beside ours with the same flags
     baselines = {d: start_baseline("lidar.cu", j, d) for j, d in enumerate(opts.baseline)}
     libm_built = {d: start_baseline("libm.cu", j, d) for j, d in enumerate(opts.baseline)}
-    sources = ["libm.cu", "lidar.cu", "npc_move.cu", "libm_host.cpp"]
+    sources = ["libm.cu", "lidar.cu", "npc_move.cu", "ego_step.cu", "libm_host.cpp"]
     started = [(s, native.start_build(s)) for s in sources]
     for s, st in started:
         native.finish_build(s, st)
@@ -845,13 +860,13 @@ def main() -> int:
     if launches.get("lidar_scan", 0) != 200:
         phase("main", f"FAIL: K1 launched {launches.get('lidar_scan', 0)} times in 200 steps")
         return 1
-    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
     held, bad = held_to_plain(rec, kernels)
     if missing or bad:
         phase("main", f"FAIL: kernels not launched on the main path: {missing}; {bad}")
         return 1
     for k in kernels:
-        kernels[k]["launches"] = launches[k]
+        kernels[k]["launches"] = launches.get(k, 0)
     phase("main", f"4096x4, 200 steps, bf16 MLP in the loop: "
                   f"{4096 * 200 / secs:.1f} env-steps/s, peak memory "
                   f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}; "
@@ -892,13 +907,16 @@ def main() -> int:
         return 1
     phase("main", f"64x4, 100 steps: card run bit-equal to the CPU run ({len(runs['cpu'])} tensors)")
 
-    own = {}        # kernels only some phases launch: K2 (the NPC planner's move)
+    own = {}        # kernels with a phase of their own: K2 (the NPC planner's move), K3
     for name, fn in (("graphs", graphs_phase), ("train", train_phase),
                      ("npc_move", lambda dev, card, kernels: npc_move_phase(dev, card, own)),
+                     ("ego_step", lambda dev, card, kernels: ego_step_phase(dev, card, own)),
                      ("traffic", traffic_phase),
                      ("policies", policies_phase), ("learners", learners_phase),
                      ("resume", resume_phase), ("gym", gym_phase),
                      ("planning", planning_phase), ("distributed", distributed_phase)):
+        if opts.phases and name not in opts.phases:
+            continue
         t0 = time.perf_counter()
         if fn(dev, card, kernels):
             return 1
@@ -912,6 +930,11 @@ def main() -> int:
 
 
 GRAPH_STEPS = 200
+# the kernels of phase 4's table that every env step launches: K1 and the
+# observation's atan2f_diff (sincosf, tanf and hypotf_diff of the ego tick
+# run inside K3; the NPC layer still launches sincosf and
+# hypotf_diff); each phase fails if its steps left one of them out
+STEP_KERNELS = ("lidar_scan", "atan2f_diff")
 # the kernels' names in the profiler's records
 PROFILED_NAME = {"lidar_scan": "lidar_kernel", "sincosf": "sincosf_kernel", "tanf": "TanF",
                  "atan2f_diff": "Atan2FDiff", "hypotf_diff": "HypotFDiff"}
@@ -1016,7 +1039,7 @@ def graphs_phase(dev, card, kernels) -> int:
         rates["graphed" if graphed else "eager"].append(block(graphed))
         if first:
             launches = dict(native.LAUNCHES)
-    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
     held, bad = held_to_plain(rec, kernels)
     if launches.get("lidar_scan", 0) != GRAPH_STEPS or missing or bad:
         phase("graphs", f"FAIL: in {GRAPH_STEPS} graphed steps K1 launched "
@@ -1034,7 +1057,7 @@ def graphs_phase(dev, card, kernels) -> int:
     for k, row in kernels.items():
         hits = [(n, us) for name, (n, us) in recs.items() if PROFILED_NAME.get(k, k) in name]
         n, us = sum(h[0] for h in hits), sum(h[1] for h in hits)
-        row["launches_graphed"] = launches[k]
+        row["launches_graphed"] = launches.get(k, 0)
         row["launches_per_replay"] = graph.launches.get(k, 0)
         row["ms_in_replay"] = us / n / 1e3 if n else None
     phase("graphs", f"{B}x{N}, zero actions, {GRAPH_STEPS}-step blocks in turns (eager, "
@@ -1246,13 +1269,13 @@ def train_phase(dev, card, kernels) -> int:
             phase("train", f"FAIL: update_count {saved['update_count']} (want 48), K1 launched "
                            f"{launches.get('lidar_scan', 0)} times (want {3 * T})")
             return 1
-        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
         held, bad = held_to_plain(rec, kernels)
         if missing or bad:
             phase("train", f"FAIL: kernels not launched in training: {missing}; {bad}")
             return 1
         for k in kernels:
-            kernels[k]["launches_train"] = launches[k]
+            kernels[k]["launches_train"] = launches.get(k, 0)
         phase("train", f"{B}x{N}, rollout {T}, 3 updates in {secs:.3f} s (builds warm): "
                        f"env-steps/s by update {[ln['env_steps_per_s'] for ln in logs]}, "
                        f"launches {launches}; the kernels on the last step's operands "
@@ -1408,7 +1431,7 @@ def held_to_plain(rec, kernels) -> tuple:
                        f" rays at {held[-1]}")
     launched = {libm.KERNEL_OF.get(name, name) for name, _ in rec.libm}
     bad += [f"{name} never launched" for name in kernels
-            if name != "lidar_scan" and name not in launched]
+            if name in STEP_KERNELS and name != "lidar_scan" and name not in launched]
     for (name, shape), xs in sorted(rec.libm.items()):
         if libm.KERNEL_OF.get(name, name) not in kernels:
             continue
@@ -1577,7 +1600,7 @@ def traffic_run(dev, card, kernels, model, label, steps, profile, warmup=5, time
     final = [t.clone() for t in (*state.ego, *state.npc, state.lidar, state.step_count, obs)]
     finite = bool(torch.isfinite(obs).all())
     allowed = {N + w for w in venv.npc_widths + [slots]}
-    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
     if (obs.shape != (B, N, 127) or not finite or int(spawned) == 0
             or sum(k1.by_m.values()) != steps or launches.get("lidar_scan", 0) != steps
             or not set(k1.by_m) <= allowed or missing):
@@ -1941,6 +1964,152 @@ def npc_move_phase(dev, card, rows) -> int:
     return 0
 
 
+def k3_bound(B, N, w):
+    """K3's least time in ms, by bytes: each agent's state and actions read
+    once (49 B) and its results written once (45 B), each env's counter read
+    and its results written (14 B), its w NPC slots read once (13 B each),
+    the route table read once (the path windows are in it). Its operations,
+    ~1,500 an agent at N = 8 and w = 8 (the tick's transcendentals, 50
+    distances, the status tests, separating-axis tests of ~110 each), take
+    about as long at the f32 peak."""
+    from marl_traffic_intersection_tpu_torch.core.constants import PATH_LEN
+
+    routes = 144
+    nbytes = B * N * (49 + 45) + B * (14 + 13 * w) + routes * (PATH_LEN * 8 + 28)
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+@contextlib.contextmanager
+def ticks_recorded():
+    """core/env.py::ego_step wrapped while the block runs: ``.args`` keeps a
+    copy of the last arguments by (B, N, w)."""
+    from marl_traffic_intersection_tpu_torch.core import env as env_module
+    from marl_traffic_intersection_tpu_torch.ops.ego_step_cases import NpcSlots
+
+    tick = env_module.ego_step
+    rec = types.SimpleNamespace(args={})
+
+    def recorded(*args):
+        ego, npc = args[0], args[5]
+        slots = None if npc is None else NpcSlots(*(t.clone() for t in (npc.x, npc.y,
+                                                                           npc.heading,
+                                                                           npc.alive)))
+        key = (*ego.x.shape, 0 if npc is None else npc.x.shape[1])
+        rec.args[key] = (type(ego)(*(t.clone() for t in ego)), args[1].clone(), args[2],
+                         args[3].clone(), args[4], slots, *args[6:])
+        return tick(*args)
+
+    env_module.ego_step = recorded
+    try:
+        yield rec
+    finally:
+        env_module.ego_step = tick
+
+
+def ego_step_phase(dev, card, rows) -> int:
+    """Phase 6c (see the module docstring); K3's row goes to ``rows``; 1 on
+    failure."""
+    from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
+    from marl_traffic_intersection_tpu_torch.core import env as env_module
+    from marl_traffic_intersection_tpu_torch.core.env import ego_step_ref
+    from marl_traffic_intersection_tpu_torch.ops import native
+    from marl_traffic_intersection_tpu_torch.ops.ego_step_cases import (CASES, case_args, on,
+                                                                        tick_bits)
+    from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps
+
+    def held(args, label):
+        """K3 once on ``args`` against ego_step_ref on the card: the failures."""
+        native.reset_launches()
+        got = env_module.ego_step(*args)
+        torch.cuda.synchronize()
+        bad = [] if native.LAUNCHES["ego_step"] == 1 else [f"{label}: {dict(native.LAUNCHES)}"]
+        for i, (g, w) in enumerate(zip(tick_bits(got), tick_bits(ego_step_ref(*args)))):
+            if not torch.equal(g, w):
+                bad.append(f"{label} output {i}: {int((g != w).sum())} of {g.numel()} differ")
+        return bad
+
+    row = rows["ego_step"] = dict(
+        name="ego_step", route="cuda", source=SRC + "ego_step.cu",
+        replaces="none: core/env.py::ego_step_ref's ~420-530 launches (the JAX package's "
+                 "core/env.py step, in XLA)",
+        **kernel_regs(ptxas_info(native.build_log("ego_step.cu")), "ego_step_kernel"))
+    bad = []
+    for name, envs in [(name, 64) for name in CASES] + [("n4", 4096), ("n8 w8", 4096),
+                                                        ("n8 w16 team", 4096)]:
+        bad += held(on(case_args(name, envs), dev), f"case {name} {envs} envs")
+    if bad:
+        phase("ego_step", f"FAIL: {bad[:8]}")
+        return 1
+    phase("ego_step", f"K3 bit-equal to ego_step_ref on the card, one launch a call, on "
+                      f"{len(CASES) + 3} seeded cases; {row['registers']} registers, "
+                      f"{row['spill_stores']} B spilled, {row['stack_bytes']} B stack")
+
+    # the main path's own arguments: 4096 x 4 without NPCs, config 4 at
+    # TRAFFIC_B x TRAFFIC_N narrowed (w = 8) and at npc_tier 16
+    rng = torch.Generator(device=dev).manual_seed(3)
+
+    def actions(n):
+        a = torch.rand((TRAFFIC_B, n, 2), generator=rng, device=dev)
+        return torch.stack([a[..., 0] * 0.8 + 0.2, a[..., 1] * 0.4 - 0.2], -1)
+
+    shapes = {}
+    for cfg, n in ((dict(num_agents=4), 4), (dict(TRAFFIC_CFG, npc_tier=-1), TRAFFIC_N),
+                   (dict(TRAFFIC_CFG, npc_tier=16), TRAFFIC_N)):
+        venv = VectorEnv(IntersectionEnv(EnvConfig(**cfg), device=dev), num_envs=TRAFFIC_B,
+                         seed=4)
+        state, _ = venv.reset()
+        for _ in range(100):
+            state, _ = venv.step(state, actions(n))
+        with ticks_recorded() as rec:
+            for _ in range(10):
+                state, _ = venv.step(state, actions(n))
+        shapes.update(rec.args)
+    for (B, N, w), args in sorted(shapes.items()):
+        label = f"{B}x{N} w={w}"
+        bad = held(args, label)
+        if bad:
+            phase("ego_step", f"FAIL on the main path's arguments: {bad}")
+            return 1
+        ms = device_ms(lambda: env_module.ego_step(*args), 50, match="ego_step_kernel")
+        plain = profile_steps(lambda: ego_step_ref(*args), 5)
+        bound = k3_bound(B, N, w)
+        t = dict(shape=label, ms=ms, event_ms=cuda_ms(lambda: env_module.ego_step(*args), 50),
+                 plain_ms=plain["device_busy_ms_per_step"],
+                 plain_launches=plain["kernel_launches_per_step"], bound_ms=bound,
+                 bound_by="bytes")
+        row.setdefault("shapes", []).append(t)
+        phase("ego_step", f"{label} on the main path's arguments: bit-equal to ego_step_ref on "
+                          f"the card; K3 device {ms:.5f} ms (events, with the host, "
+                          f"{t['event_ms']:.4f}); ego_step_ref on the card {t['plain_ms']:.4f} "
+                          f"ms device in {t['plain_launches']:.0f} launches; bound "
+                          f"{bound:.5f} ms (bytes), share {bound / ms:.1%}; card {card}")
+    if not {(TRAFFIC_B, 4, 0), (TRAFFIC_B, TRAFFIC_N, 8), (TRAFFIC_B, TRAFFIC_N, 16)} <= \
+            set(shapes):
+        phase("ego_step", f"FAIL: the main path called ego_step at {sorted(shapes)}")
+        return 1
+
+    # the graphed traffic step: one K3 launch per replay
+    venv = VectorEnv(IntersectionEnv(EnvConfig(**TRAFFIC_CFG), device=dev),
+                     num_envs=TRAFFIC_B, seed=5)
+    state, _ = venv.reset()
+    gstep = venv.jit_step()
+    for _ in range(50):
+        state, _ = gstep(state, actions(TRAFFIC_N))
+    per_step = []
+    for _ in range(40):
+        native.reset_launches()
+        state, _ = gstep(state, actions(TRAFFIC_N))
+        per_step.append(native.LAUNCHES["ego_step"])
+    torch.cuda.synchronize()
+    row["launches_per_graphed_step"] = sum(per_step) / len(per_step)
+    if per_step != [1] * 40:
+        phase("ego_step", f"FAIL: K3 launches per graphed step {per_step}")
+        return 1
+    phase("ego_step", f"graphed config-4 step, {TRAFFIC_B}x{TRAFFIC_N}, 40 steps after 50: one "
+                      f"K3 launch a step; card {card}")
+    return 0
+
+
 def traffic_phase(dev, card, kernels) -> int:
     """Phase 7 (see the module docstring); 1 on failure."""
     from marl_traffic_intersection_tpu_torch import ActorCriticMLP
@@ -1984,8 +2153,8 @@ def traffic_phase(dev, card, kernels) -> int:
                      f"env-steps/s {rates}; peak MiB {[round(r['peak'] / 2**20, 1) for r in runs]}"
                      f"; device reads per step {[round(r['reads'], 3) for r in runs]}; card {card}")
     for k in kernels:
-        kernels[k]["launches_traffic"] = narrow["launches"][k]
-        kernels[k]["launches_traffic_full"] = full["launches"][k]
+        kernels[k]["launches_traffic"] = narrow["launches"].get(k, 0)
+        kernels[k]["launches_traffic_full"] = full["launches"].get(k, 0)
     kernels["lidar_scan"]["launches_traffic_by_m"] = narrow["by_m"]
 
     # the fast NPC mode, and the density of test.py's traffic (10) after 150
@@ -2282,12 +2451,12 @@ def policies_phase(dev, card, kernels) -> int:
             phase("policies", f"FAIL: {name} on config 4: {got}, launches {launches}; {bad}")
             return 1
         if name == "policy_gru_multi":
-            missing = [k for k in kernels if launches.get(k, 0) == 0]
+            missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
             if missing:
                 phase("policies", f"FAIL: kernels not launched in evaluate: {missing}")
                 return 1
             for k in kernels:
-                kernels[k]["launches_eval_config4"] = launches[k]
+                kernels[k]["launches_eval_config4"] = launches.get(k, 0)
 
     # ---- serve on a free local port, answers against a direct padded forward
     def post(port, payload):
@@ -2373,12 +2542,12 @@ def learners_phase(dev, card, kernels) -> int:
                           f"K1 launched {k1} times (want {3 * T}), saved update_count "
                           f"{saved['update_count']}")
         return 1
-    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
     if missing:
         phase("learners", f"FAIL: kernels not launched in GRU training: {missing}")
         return 1
     for k in kernels:
-        kernels[k]["launches_gru_train"] = launches[k]
+        kernels[k]["launches_gru_train"] = launches.get(k, 0)
     split_line("gru", logs + resumed, prof, peak, card, "learners")
     phase("learners", f"gru: 3 updates + 1 auto-resumed, finite losses, K1 launched {k1} times "
                       f"in the 3; launches {launches}")
@@ -2404,12 +2573,12 @@ def learners_phase(dev, card, kernels) -> int:
         phase("learners", f"FAIL: train_sac: demo {demo}, last log {logs[-1:]}, K1 launched "
                           f"{k1} times (want {16 + 40 * 8})")
         return 1
-    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
     if missing:
         phase("learners", f"FAIL: kernels not launched in SAC training: {missing}")
         return 1
     for k in kernels:
-        kernels[k]["launches_sac_train"] = launches[k]
+        kernels[k]["launches_sac_train"] = launches.get(k, 0)
     phase("learners", f"train_sac 256 x 2, 40 calls after {demo['demo_transitions']} demo "
                       f"transitions: env-steps/s by log {[ln['env_steps_per_s'] for ln in logs]}, "
                       f"alpha {logs[-1]['alpha']}, buffer {logs[-1]['buffer_size']}, K1 launched "
@@ -2569,12 +2738,12 @@ def resume_phase(dev, card, kernels) -> int:
                             f"{steps} (want {count + 32}), K1 launched "
                             f"{launches.get('lidar_scan', 0)} times (want {2 * T})")
             return 1
-        missing = [k for k in kernels if launches.get(k, 0) == 0]
+        missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
         if missing:
             phase("resume", f"FAIL: kernels not launched in the fine-tune: {missing}")
             return 1
         for k in kernels:
-            kernels[k]["launches_resume"] = launches[k]
+            kernels[k]["launches_resume"] = launches.get(k, 0)
         roll = [ln["rollout_s"] for ln in logs]
         upd = [ln["update_s"] for ln in logs]
         phase("resume", f"train --model attention --resume policy_attn_cfg1 --agents 4 "
@@ -2713,7 +2882,7 @@ def gym_phase(dev, card, kernels) -> int:
     card_h, cpu_h = runs["card"][0], runs["cpu"][0]
     differ = [i for i, (a, b) in enumerate(zip(card_h, cpu_h))
               if a.shape != b.shape or not np.array_equal(a.view(np.uint8), b.view(np.uint8))]
-    missing = [k for k in kernels if launches.get(k, 0) == 0]
+    missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
     if (len(card_h) != len(cpu_h) or differ or dict(rec.by_m) != {1: 200}
             or launches.get("lidar_scan", 0) != 200 or missing or bad):
         phase("gym", f"FAIL: config-1 gym, 200 steps: card vs CPU differ in {len(differ)} of "
@@ -2721,7 +2890,7 @@ def gym_phase(dev, card, kernels) -> int:
                      f"launched {missing}; {bad}")
         return 1
     for k in kernels:
-        kernels[k]["launches_gym"] = launches[k]
+        kernels[k]["launches_gym"] = launches.get(k, 0)
     med = {k: float(np.median(runs[k][1])) for k in runs}
     phase("gym", f"GymIntersectionEnv config 1, 200 steps with seeded random actions: the "
                  f"card's obs, rewards, done and status bit-equal to the CPU's ({len(cpu_h)} "
@@ -2929,7 +3098,7 @@ def distributed_phase(dev, card, kernels) -> int:
                                      f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
                 return 1
             launches, saved = child["launches"], restore_checkpoint(ck)
-            missing = [k for k in kernels if launches.get(k, 0) == 0]
+            missing = [k for k in STEP_KERNELS if launches.get(k, 0) == 0]
             steps = 16 * U
             if (len(logs) != U or not losses_finite(logs) or saved["update_count"] != steps
                     or launches.get("lidar_scan", 0) != U * T or missing or child["bad"]):
@@ -2946,7 +3115,7 @@ def distributed_phase(dev, card, kernels) -> int:
                 return 1
             if i == 0:
                 for k in kernels:
-                    kernels[k]["launches_distributed"] = launches[k]
+                    kernels[k]["launches_distributed"] = launches.get(k, 0)
                 mesh_line = next((ln for ln in r.stdout.splitlines() if ln.startswith("ranks=")),
                                  "")
                 phase("distributed", f"train --distributed under torchrun, {B}x{N}, rollout "

@@ -10,10 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from marl_traffic_intersection_tpu_torch.core.constants import STATUS_ALIVE, STATUS_CRASH_LINE
+from marl_traffic_intersection_tpu_torch.core.env import EgoTick, ego_step_ref
 from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
-from marl_traffic_intersection_tpu_torch.core import npc
+from marl_traffic_intersection_tpu_torch.core import env as env_module, npc
 from marl_traffic_intersection_tpu_torch.core.npc import move_ref, stat_counts
 from marl_traffic_intersection_tpu_torch.ops import libm, native
+from marl_traffic_intersection_tpu_torch.ops import ego_step_cases
+from marl_traffic_intersection_tpu_torch.ops.ego_step_cuda import ego_step
 from marl_traffic_intersection_tpu_torch.ops.lidar_cases import edge_inputs, fuzz_inputs
 from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
 from marl_traffic_intersection_tpu_torch.ops.npc_move_cases import CASES, case_args, on
@@ -227,6 +231,78 @@ def test_npc_move_rejects_what_it_does_not_take(card):
         npc_move(torch.cat([args[0], args[0]], 1)[:, :1], *args[1:])
     with pytest.raises(ValueError, match="path"):
         npc_move(*args[:7], args[7][:, :, :100], *args[8:])
+
+
+def _k3(args) -> EgoTick:
+    """K3 on ego_step_ref's arguments, as core/env.py::ego_step assembles it."""
+    native.reset_launches()
+    tick = env_module.ego_step(*args)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ego_step"] == 1, dict(native.LAUNCHES)
+    return tick
+
+
+K3_CASES = [(name, 64) for name in ego_step_cases.CASES] + [("n4", 4096), ("n8 w8", 4096),
+                                                            ("n8 w16 team", 4096)]
+
+
+@pytest.mark.parametrize("name,envs", K3_CASES, ids=str)
+def test_k3_matches_the_plain_version(card, name, envs):
+    """K3, one launch, bit-equal to ego_step_ref on the card (NaNs as NaNs)
+    and, but for the edge envs' NaN truncation, on the CPU; at 4096 x 4
+    without NPCs and 4096 x 8 with 8 and 16 slots, the main path's shapes."""
+    args = ego_step_cases.case_args(name, envs)
+    on_card = ego_step_cases.on(args, card)
+    got = ego_step_cases.tick_bits(_k3(on_card))
+    want = ego_step_cases.tick_bits(ego_step_ref(*on_card))
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), (name, i, int((g != w).sum()))
+    if name != "edges":
+        for i, (g, h) in enumerate(zip(got, ego_step_cases.tick_bits(ego_step_ref(*args)))):
+            assert torch.equal(g, h), (name, "cpu", i, int((g != h).sum()))
+    else:
+        # a NaN corner truncates to 0 on the card (cvt.rzi), a pixel of the
+        # line mask; on the CPU to INT32_MIN, off it
+        b = ego_step_cases.EDGE_ENVS.index("nan on the line mask")
+        status = EgoTick._fields.index("status") - 1 + len(args[0])
+        assert got[status][b, 0] == STATUS_CRASH_LINE
+        assert ego_step_cases.tick_bits(ego_step_ref(*args))[status][b, 0] == STATUS_ALIVE
+
+
+def test_k3_launches_once_per_graphed_step(card):
+    """The graphed VectorEnv step launches K3 once a step, with and without
+    NPCs (the exact mode's cleanup rounds notwithstanding); the plain
+    version's chain never runs on the card."""
+    import marl_traffic_intersection_tpu_torch as P
+    plain = P.VectorEnv(P.IntersectionEnv(P.EnvConfig(num_agents=4, max_steps=20), device=card),
+                        num_envs=64, seed=3)
+    for venv, n in ((plain, 4), (_traffic_venv(card, 64, "exact"), 8)):
+        step = venv.jit_step()
+        state, _ = venv.reset()
+        rng = np.random.RandomState(8)
+        counts = []
+        for t in range(30):
+            a = torch.from_numpy(rng.uniform(-1, 1, (64, n, 2)).astype(np.float32)).to(card)
+            native.reset_launches()
+            state, *_ = step(state, a)
+            counts.append(native.LAUNCHES["ego_step"])
+        torch.cuda.synchronize()
+        assert counts == [1] * 30, counts
+
+
+def test_k3_rejects_what_it_does_not_take(card):
+    args = ego_step_cases.on(ego_step_cases.case_args("n8 w8", 16), card)
+    ego, actions, *rest = args
+    with pytest.raises(ValueError, match="CUDA"):
+        ego_step(*ego_step_cases.on(args, "cpu"))
+    with pytest.raises(ValueError, match="actions must be"):
+        ego_step(ego, actions.double(), *rest)
+    with pytest.raises(ValueError, match="y must be"):
+        ego_step(ego._replace(y=ego.y.cpu()), actions, *rest)
+    wide = ego_step_cases.on(ego_step_cases.case_args("n32 w8 team", 16), card)
+    wide_ego = type(ego)(*(torch.cat([t, t[:, :1]], 1) for t in wide[0]))
+    with pytest.raises(ValueError, match="1 to 32 agents"):
+        ego_step(wide_ego, torch.cat([wide[1], wide[1][:, :1]], 1), *wide[2:])
 
 
 def test_env_on_the_card_equals_the_cpu(card):
