@@ -1144,7 +1144,7 @@ def ppo_runs(dev, B, T, model_kw, names, profile=True, **env_kw) -> dict:
     metrics, parameters, Adam's moments (copies) and the env's npc_stats,
     the splits, the profile and the graphed step's graphs."""
     from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
-    from marl_traffic_intersection_tpu_torch.core.npc import stat_counts
+    from marl_traffic_intersection_tpu_torch.utils.graphs import stat_counts
     from marl_traffic_intersection_tpu_torch.models import make_model
     from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner
     from marl_traffic_intersection_tpu_torch.utils.graphs import capturable_, leaves
@@ -1160,21 +1160,11 @@ def ppo_runs(dev, B, T, model_kw, names, profile=True, **env_kw) -> dict:
         capturable_(ts.optimizer, name != "host adam")
         state, obs = venv.reset()
         trajs, after, splits = [], [], []
-        if name == "graphed":
-            step = lrn.jit_train_step()
-        else:
-            step, rollout = lrn.train_step, lrn._rollout
-
-            def kept(*a, rollout=rollout, trajs=trajs):
-                out = rollout(*a)
-                trajs.append(out[2])
-                return out
-            lrn._rollout = kept
+        step = lrn.jit_train_step() if name == "graphed" else lrn.train_step
         for _ in range(1 if name == "host adam" else 2):
             split = {}
             ts, state, obs, metrics = step(ts, state, obs, split)
-            if name == "graphed":
-                trajs.append(tuple(t.clone() for t in step.traj))
+            trajs.append(tuple(t.clone() for t in (step if name == "graphed" else lrn.eager).traj))
             after.append(dict(
                 state=[t.clone() for t in leaves(state)], obs=obs.clone(),
                 metrics=torch.stack(list(metrics.values())),
@@ -1332,10 +1322,10 @@ def train_phase(dev, card, kernels) -> int:
         t_s = lrn.init()
         if d == "cpu":
             s0, o0 = cpu_venv.reset()
-            _, _, traj_cpu, lv = lrn._rollout(t_s.model, s0, o0)
+            _, _, traj_cpu, lv = lrn.rollout(t_s, s0, o0)
             advs_cpu, rets_cpu = lrn._gae(traj_cpu, lv)
         tr = Transition(*(t.to(d) for t in traj_cpu))
-        t_s, _ = lrn._update(t_s, tr, advs_cpu.to(d), rets_cpu.to(d))
+        t_s, _ = lrn.update(t_s, tr, advs_cpu.to(d), rets_cpu.to(d))
         st = t_s.optimizer.state
         updated[str(d)] = {k: [v.detach().cpu()] + [st[v][m].cpu() for m in ("exp_avg",
                                                                               "exp_avg_sq")]
@@ -1670,7 +1660,7 @@ def traffic_turns(dev, card, kernels, model, label, lock=30, block=40, warmup=50
     the first graphed block and its device time inside a replay go to the
     kernel line. Returns what it read (None on failure)."""
     from marl_traffic_intersection_tpu_torch import EnvConfig, IntersectionEnv, VectorEnv
-    from marl_traffic_intersection_tpu_torch.core.npc import stat_counts
+    from marl_traffic_intersection_tpu_torch.utils.graphs import stat_counts
     from marl_traffic_intersection_tpu_torch.ops import native
     from marl_traffic_intersection_tpu_torch.utils.graphs import clone_tree
     from marl_traffic_intersection_tpu_torch.utils.profiling import profile_steps, records
@@ -2656,10 +2646,10 @@ def card_vs_cpu_learners(dev) -> int:
         ts = lrn.init()
         if d == "cpu":
             s0, o0 = lrn.env.reset()
-            _, _, _, traj_cpu, lv = lrn._rollout(ts.model, s0, o0, lrn.initial_hidden())
+            _, _, _, traj_cpu, lv = lrn.rollout(ts, s0, o0, lrn.initial_hidden())
             advs, rets = lrn._gae(traj_cpu, lv)
-        ts, _ = lrn._update(ts, RecTransition(*(t.to(d) for t in traj_cpu)), advs.to(d),
-                            rets.to(d))
+        ts, _ = lrn.update(ts, RecTransition(*(t.to(d) for t in traj_cpu)), advs.to(d),
+                           rets.to(d))
         models[str(d)], opts[str(d)] = [ts.model], [ts.optimizer]
     if not compare("recurrent PPO, 64x4x16, one update (16 Adam steps)", models, opts,
                    [seeded(lambda: RecurrentActorCritic(**f32))]):
@@ -2791,11 +2781,11 @@ def resume_phase(dev, card, kernels) -> int:
         start = int(next(iter(st.optimizer.state.values()))["step"])
         if d == "cpu":
             s0, o0 = ven.reset()
-            _, _, traj_cpu, lv = lrn._rollout(ts.model, s0, o0)
+            _, _, traj_cpu, lv = lrn.rollout(ts, s0, o0)
             advs_cpu, rets_cpu = lrn._gae(traj_cpu, lv)
             before = {k: v.detach().clone() for k, v in ts.model.named_parameters()}
-        ts, _ = lrn._update(ts, Transition(*(t.to(d) for t in traj_cpu)), advs_cpu.to(d),
-                            rets_cpu.to(d))
+        ts, _ = lrn.update(ts, Transition(*(t.to(d) for t in traj_cpu)), advs_cpu.to(d),
+                           rets_cpu.to(d))
         opt = ts.optimizer.state
         updated[str(d)] = {k: [v.detach().cpu()] + [opt[v][m].cpu() for m in ("exp_avg",
                                                                                "exp_avg_sq")]
@@ -3018,7 +3008,7 @@ def train_child(argv) -> int:
     disagrees or never launched."""
     from marl_traffic_intersection_tpu_torch import train
     from marl_traffic_intersection_tpu_torch.ops import libm, native
-    from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOLearner, _GraphedTrainStep
+    from marl_traffic_intersection_tpu_torch.parallel.ppo import TrainStep
     from marl_traffic_intersection_tpu_torch.utils.profiling import collective_census
 
     native.reset_launches()
@@ -3030,11 +3020,10 @@ def train_child(argv) -> int:
             return step(self, *args, **kw)
         return call
 
-    # one process on the card runs the graphed step, torchrun's world the eager one
+    # one process on the card runs the graphed step, torchrun's world the eager
+    # one: both are TrainStep.train
     with k1_counted() as rec, collective_census() as calls, \
-            mock.patch.object(PPOLearner, "train_step", counted(PPOLearner.train_step)), \
-            mock.patch.object(_GraphedTrainStep, "__call__",
-                              counted(_GraphedTrainStep.__call__)):
+            mock.patch.object(TrainStep, "train", counted(TrainStep.train)):
         train.main(argv)
     launches = dict(native.LAUNCHES)        # before the comparisons launch again
     per_update = [b - a for a, b in zip(starts, starts[1:] + [len(calls)])]
@@ -3156,7 +3145,7 @@ def distributed_phase(dev, card, kernels) -> int:
     perms = [torch.randperm(16, generator=g) for _ in range(cfg16.update_epochs)]
     lrn = PPOLearner(cpu_venv, make_model("mlp", seed=5, **f32), cfg16, seed=4)
     s0, o0 = cpu_venv.reset()
-    _, _, traj, lv = lrn._rollout(lrn.init().model, s0, o0)
+    _, _, traj, lv = lrn.rollout(lrn.init(), s0, o0)
     advs, rets = lrn._gae(traj, lv)
     updated = {}
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
@@ -3172,8 +3161,8 @@ def distributed_phase(dev, card, kernels) -> int:
             if which == "distributed":
                 _, shard_ts, _ = lrn.distributed(mesh, "mlp")
                 t_s = shard_ts(t_s)
-            t_s, _ = lrn._update(t_s, Transition(*(t.to(dev) for t in traj)), advs.to(dev),
-                                 rets.to(dev))
+            t_s, _ = lrn.update(t_s, Transition(*(t.to(dev) for t in traj)), advs.to(dev),
+                                rets.to(dev))
             st = t_s.optimizer.state
             updated[which] = {k: [v.detach().cpu()] + [st[v][m].cpu() for m in
                                                        ("exp_avg", "exp_avg_sq")]

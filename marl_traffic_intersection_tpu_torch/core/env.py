@@ -38,13 +38,14 @@ from ..device import resolve_device
 from ..ops import libm
 from ..ops.ego_step_cuda import ego_step as ego_step_cuda
 from ..ops.lidar_cuda import lidar_scan
+from ..utils.graphs import EAGER
 from .constants import (DT_DEFAULT, FPS, HEIGHT, LIDAR_MAX_DIST, LIDAR_RAYS,
                         MAX_ACC, MAX_STEERING_ANGLE, NEIGHBOR_COUNT, OBS_DIM,
                         PATH_LEN, PHYSICS_MAX_SPEED, PI_F, SCALE, STATUS_ALIVE,
                         STATUS_CRASH_CAR, STATUS_CRASH_LINE, STATUS_CRASH_WALL,
                         STATUS_DEAD, STATUS_SUCCESS, WIDTH)
 from .geometry import hits_yellow_line, is_line_pixel, is_on_road
-from .npc import (EAGER, NpcState, exact_begin, exact_end, exact_segments, init_npc_state,
+from .npc import (NpcState, exact_begin, exact_end, exact_segments, init_npc_state,
                   npc_traffic_update_fast, npc_traffic_update_serial)
 from .physics import (car_corners, car_physics_step, sat_overlap,
                       update_path_index, wrap_angle)
@@ -365,11 +366,11 @@ class IntersectionEnv:
         that cause (``width``, ``cleanup``, ``cascade``) to the return of
         the graph replay after it, in which the device idles; written only
         by the graphed step's runner (utils/graphs.py::Segments, on
-        ``time.perf_counter_ns``); the eager runner (``core.npc.EAGER``),
+        ``time.perf_counter_ns``); the eager runner (``utils.graphs.EAGER``),
         and so every CPU run, keeps the counts only.
 
     The counts of an eager and a graphed run of the same steps are equal
-    (``core.npc.stat_counts``)."""
+    (``utils.graphs.stat_counts``)."""
 
     def __init__(self, config: EnvConfig = EnvConfig(),
                  reward: Optional[RewardParams] = None,

@@ -29,18 +29,18 @@ counter (the env's ``npc_stats``, core/env.py) counts the reads
 (``host_reads``), the rounds of each loop (``cleanup_rounds``,
 ``collision_rounds``) and, per tick, the loops' rounds together
 (``npc_rounds_at_<n>``: one more tick whose cleanup and cascade ran n
-rounds). Each read goes through ``host_read``, which tells the segment
-runner its cause (``cleanup``, ``cascade``): a graphed runner times from
-there the device's idle until its next replay (utils/graphs.py::Segments),
-the eager one keeps counts only.
+rounds). Each read goes through ``host_read`` (utils/graphs.py), which
+tells the segment runner its cause (``cleanup``, ``cascade``): a graphed
+runner times from there the device's idle until its next replay
+(``Segments``), the eager one keeps counts only.
 
 Each loop is a device start, a round that updates the carried state in
 place (``cleanup_round_``, ``cascade_round_``) and a host loop that reads
 the device to decide how many rounds run (``run_cleanup``,
 ``run_cascade``). ``exact_segments`` strings them into the exact tick up to
-its despawn, every device part run by a segment runner: ``EAGER`` calls it,
-the graphed step (envs/vector.py, utils/graphs.py::Segments) replays a CUDA
-graph of it, so both run one body and make the same reads.
+its despawn, every device part run by a segment runner (utils/graphs.py):
+``EAGER`` calls it, the graphed step (envs/vector.py, ``Segments``) replays
+a CUDA graph of it, so both run one body and make the same reads.
 
 The float chain is the reference's, as everywhere in the port: trig,
 ``atan2f`` and ``hypotf`` from ops/libm.py, correctly rounded square roots,
@@ -57,10 +57,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.autograd import _profiler_enabled as profiling
 
 from ..ops import libm
 from ..ops.npc_move_cuda import npc_move
+from ..utils.graphs import EAGER, host_read
 from .constants import (CAR_LENGTH, CAR_WIDTH, HEIGHT, LANE_WIDTH_PX, PATH_LEN,
                         PHYSICS_MAX_SPEED, PI_F, WIDTH)
 from .physics import (car_corners, car_physics_step, sat_overlap,
@@ -140,57 +140,6 @@ def _count(stats: Optional[collections.Counter], loop: str, rounds: int, reads: 
     if stats is not None:
         stats["host_reads"] += reads
         stats[f"{loop}_rounds"] += rounds
-
-
-IDLE = "read_idle_s."           # npc_stats' summed seconds: IDLE + a read's cause
-
-
-def stat_counts(stats) -> dict:
-    """The counts of an ``npc_stats`` counter: every key but the summed
-    seconds (``read_idle_s.<cause>``), which only a graphed run keeps."""
-    return {k: v for k, v in stats.items() if not k.startswith(IDLE)}
-
-
-def marked(name: str):
-    """The range ``name`` on a recording torch profiler's timeline (call it
-    where ``profiling()`` holds). It marks the host alone: a
-    ``record_function`` range (a user scope) also gets a device-side copy
-    spanning the kernels launched inside it, which a trace's reduction would
-    count as device work; this record (a function scope) gets none."""
-    return torch._C._profiler._RecordFunctionFast(name)
-
-
-def host_read(run, cause: str, read):
-    """``read()``, a read of the device by the host, which waits for the
-    stream to drain. While a torch profiler records, the read is the range
-    ``mti.read.<cause>`` on its timeline. Then the segment runner ``run`` is
-    told (``run.after_read(cause)``): the graphed one times the device's
-    idle from here to its next replay, the eager one does nothing."""
-    if profiling():
-        with marked("mti.read." + cause):
-            value = read()
-    else:
-        value = read()
-    run.after_read(cause)
-    return value
-
-
-class _Eager:
-    """The segment runner of the eager code: ``run(key, fn, *inputs)`` and
-    ``run.carry(key, fn, *inputs)`` are ``fn(*inputs)``, and
-    ``run.after_read(cause)`` (``host_read``) does nothing
-    (utils/graphs.py::Segments is the graphed one)."""
-
-    def __call__(self, key, fn, *inputs):
-        return fn(*inputs)
-
-    carry = __call__
-
-    def after_read(self, cause: str) -> None:
-        pass
-
-
-EAGER = _Eager()
 
 
 # ------------------------------------------------------------------ planner

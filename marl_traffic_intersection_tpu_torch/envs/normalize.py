@@ -16,7 +16,7 @@ import torch
 
 from ..core.constants import DT_DEFAULT
 from ..core.env import EnvState
-from ..core.npc import EAGER
+from ..utils.graphs import EAGER
 from .vector import VectorEnv
 
 

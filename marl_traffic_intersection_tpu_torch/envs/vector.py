@@ -41,11 +41,11 @@ keeps the counts only.
 
 A step is ``draws`` (the random draws, eager) then ``step_body`` (the
 rest). ``step_body`` is a sequence of device segments between the host's
-decisions, each run by a segment runner: the NPC width read; with the exact
-NPC mode, its update's segments and loops (``IntersectionEnv.exact_npc``);
-then the rest of the step as one segment. Eagerly (``core.npc.EAGER``) a
-segment is a call. ``jit_step`` is the JAX package's: on the card it
-replays a CUDA graph of each segment (utils/graphs.py::Segments), keyed by
+decisions, each run by a segment runner (utils/graphs.py): the NPC width
+read; with the exact NPC mode, its update's segments and loops
+(``IntersectionEnv.exact_npc``); then the rest of the step as one segment.
+Eagerly (``EAGER``) a segment is a call. ``jit_step`` is the JAX package's:
+on the card it replays a CUDA graph of each segment (``Segments``), keyed by
 what the host decided (the width, the cleanup schedule, ``final_obs``),
 with the same reads and loop rounds as ``step`` and bit-equal to it, where
 the JAX package compiles the width ladder and the loops into one program
@@ -72,8 +72,10 @@ import torch
 
 from ..core.constants import DT_DEFAULT
 from ..core.env import EnvState, IntersectionEnv
-from ..core.npc import EAGER, NpcState, host_read, marked, profiling, spawn_decision
+from ..core.npc import NpcState, spawn_decision
 from ..core.routes import default_ego_routes
+from ..utils.graphs import (EAGER, Segments, clone_tree, copy_tree_, host_read, marked,
+                            profiling, stage)
 
 
 def npc_tier_widths(npc_tier: int, max_npcs: int) -> list:
@@ -284,15 +286,11 @@ def _result(*parts):
 
 class _GraphedStep:
     """``VectorEnv.jit_step``'s callable on the card (see there): the
-    segments of ``step_body`` replayed by one ``Segments``. Its methods
-    import utils.graphs when they run: utils imports this module (through
-    utils/checkpoint.py)."""
+    segments of ``step_body`` replayed by one ``Segments``."""
 
     def __init__(self, venv: VectorEnv, dt: float, donate: bool):
-        from ..utils.graphs import GraphPool, Segments
-
         self.venv, self.dt, self.donate = venv, dt, donate
-        self.segments = Segments(GraphPool(venv.env.device), venv.env.npc_stats)
+        self.segments = Segments.on(venv.env.device, venv.env.npc_stats)
         self.state = self.actions = self.draws = None
 
     @property
@@ -302,20 +300,14 @@ class _GraphedStep:
 
     def _stage(self, state, actions, draws) -> None:
         """The step's operands written into the static buffers."""
-        from ..utils.graphs import stage
-
         self.state, self.actions = stage(self.state, state), stage(self.actions, actions)
         self.draws = stage(self.draws, draws)
 
     def _keep(self, new_state, *rest):
-        from ..utils.graphs import copy_tree_
-
         copy_tree_(self.state, new_state)
         return rest
 
     def __call__(self, state, actions, final_obs: bool = False):
-        from ..utils.graphs import clone_tree
-
         if profiling():
             with marked("mti.draws"):
                 draws = self.venv.draws(self.dt)

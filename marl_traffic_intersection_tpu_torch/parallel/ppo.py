@@ -1,9 +1,9 @@
 """PPO learner over the batched env: rollout, GAE and the clipped-PPO update.
 
-Counterpart of marl_traffic_intersection_tpu/parallel/ppo.py, run eagerly on
-one device. One ``train_step`` is a rollout of ``rollout_len`` env steps with
-the policy in the loop (the env step launches kernel K1 and the libm
-kernels), GAE backwards over the trajectory, then ``update_epochs`` epochs of
+Counterpart of marl_traffic_intersection_tpu/parallel/ppo.py. One
+``train_step`` is a rollout of ``rollout_len`` env steps with the policy in
+the loop (the env step launches kernels K1 and K3 and the libm kernels), GAE
+backwards over the trajectory, then ``update_epochs`` epochs of
 ``num_minibatches`` clipped-PPO minibatches. Every agent is an independent
 decision-maker under one shared policy; per-agent rewards come from the env.
 
@@ -25,13 +25,10 @@ the JAX package:
   - metrics stay on the device, averaged over the minibatches, until the
     caller reads them.
 
-The trajectory buffers are allocated once per rollout at their full (T, ...)
-size and filled in place.
-
-``jit_train_step()`` is the JAX package's ``jit_train_step()`` without a
-mesh: on the card the rollout step, GAE and each minibatch update replay
-CUDA graphs (utils/graphs.py, ``_GraphedTrainStep``), the draws made
-eagerly as here; on the CPU it is ``train_step``.
+The step is written once, ``TrainStep``, and run by a segment runner
+(utils/graphs.py): eagerly by ``train_step`` (the CPU, the card, a mesh),
+as CUDA graph replays by ``jit_train_step()`` on the card. ``rollout`` and
+``update`` run its rollout alone and its update alone.
 
 ``distributed(mesh, model_kind)`` runs the same step on a ``(data, model)``
 mesh (parallel/mesh.py), one process per rank, and returns ``(step,
@@ -69,7 +66,8 @@ from torch import nn
 from ..core.constants import (STATUS_CRASH_CAR, STATUS_CRASH_LINE, STATUS_CRASH_WALL,
                               STATUS_SUCCESS)
 from ..models.actor_critic import draw_noise, logp_and_entropy, sample_action
-from ..utils.graphs import Graph, GraphPool, Segments, capturable_, copy_tree_, leaves, stage
+from ..utils.graphs import (EAGER, Segments, capturable_, clone_tree, copy_tree_, leaves,
+                            stage)
 from .mesh import (average_gradients_, axis_mean, axis_sum_, data_axis, global_grad_norm,
                    global_rows, model_axis, shard_batch_tree, shard_model_)
 
@@ -145,6 +143,7 @@ class PPOLearner:
         self.perm_fn = perm_fn or (lambda n: torch.randperm(
             n, generator=self.perm_generator, device=self.device))
         self.mesh = None
+        self.eager = TrainStep(self)
 
     def distributed(self, mesh, model_kind: str):
         """Bind the learner to ``mesh``: ``(step, shard_ts, shard_env)``.
@@ -179,29 +178,25 @@ class PPOLearner:
         return TrainState(model, torch.optim.Adam(model.parameters(), lr=self.cfg.lr, eps=1e-8))
 
     # ------------------------------------------------------------------ rollout
-    @torch.no_grad()
-    def _rollout(self, model: nn.Module, env_state, obs: torch.Tensor):
-        T = self.cfg.rollout_len
-        b, n = obs.shape[:2]
+    def _trajectory(self, obs: torch.Tensor) -> Transition:
+        """Empty (T, ...) trajectory buffers of a rollout from ``obs``."""
+        T, (b, n) = self.cfg.rollout_len, obs.shape[:2]
 
         def buf(*shape, dtype=torch.float32):
             return torch.empty((T, *shape), dtype=dtype, device=obs.device)
 
-        traj = Transition(obs=buf(*obs.shape), raw_action=buf(b, n, 2), logp=buf(b, n),
+        return Transition(obs=buf(*obs.shape), raw_action=buf(b, n, 2), logp=buf(b, n),
                           value=buf(b, n), reward=buf(b, n), ep_done=buf(b, dtype=torch.bool),
                           agent_done=buf(b, n, dtype=torch.bool),
                           status=buf(b, n, dtype=torch.int32))
-        for t in range(T):
-            mean, log_std, value = model(obs)
-            action, raw = sample_action(mean, log_std, self.noise_fn(mean.shape))
-            logp, _ = logp_and_entropy(mean, log_std, raw)
-            env_state, out = self.env.step(env_state, action)
-            for dst, src in zip(traj, (obs, raw, logp, value, out.reward,
-                                       out.terminated | out.truncated, out.done, out.status)):
-                dst[t] = src
-            obs = out.obs
-        last_value = model(obs)[2]
-        return env_state, obs, traj, last_value
+
+    def _transition(self, act, out, obs: torch.Tensor):
+        """One step's trajectory row, from the act (``TrainStep._act``), the
+        env's ``out`` and the observation acted on; and the carry after the
+        step besides the observation (none here)."""
+        _, raw, logp, value = act
+        return (obs, raw, logp, value, out.reward, out.terminated | out.truncated, out.done,
+                out.status), ()
 
     # ---------------------------------------------------------------------- gae
     def _gae(self, traj: Transition, last_value: torch.Tensor):
@@ -254,83 +249,47 @@ class PPOLearner:
         mean = axis_sum_(adv.sum(), self.data_axis) / count
         return mean, torch.sqrt(axis_sum_(((adv - mean) ** 2).sum(), self.data_axis) / count)
 
-    def _minibatches(self, traj: Transition, advs: torch.Tensor, rets: torch.Tensor):
-        """Per epoch, ``num_minibatches`` batches of ``_loss``: one permutation
-        of the time axis per epoch, cut into equal slices."""
-        cfg = self.cfg
-        T, mb = cfg.rollout_len, cfg.num_minibatches
-        size = T // mb
-        data = (traj.obs, traj.raw_action, traj.logp, advs, rets, traj.value)
-        for _ in range(cfg.update_epochs):
-            perm = self.perm_fn(T)          # shuffle time only
-            for i in range(mb):
-                idx = perm[i * size:(i + 1) * size]
-                yield tuple(x[idx] for x in data)
+    def _minibatch_indices(self) -> list:
+        """One epoch's minibatches: one permutation of the time axis, cut
+        into ``num_minibatches`` equal slices of time indices."""
+        T, mb = self.cfg.rollout_len, self.cfg.num_minibatches
+        size, perm = T // mb, self.perm_fn(T)          # shuffle time only
+        return [perm[i * size:(i + 1) * size] for i in range(mb)]
 
-    def _update(self, ts: TrainState, traj: Transition, advs: torch.Tensor, rets: torch.Tensor):
-        cfg = self.cfg
-        T, mb = cfg.rollout_len, cfg.num_minibatches
-        if T % mb:
-            raise ValueError(f"rollout_len {T} is not a multiple of num_minibatches {mb}")
-        per_step = cfg.update_epochs * mb
-        params = [p for p in ts.model.parameters() if p.requires_grad]
-        sums = torch.zeros(len(LOSS_METRICS), device=advs.device)
-        for batch in self._minibatches(traj, advs, rets):
-            actor_on = 1.0 if ts.update_count >= cfg.critic_warmup * per_step else 0.0
-            loss, metrics = self._loss(ts.model, batch, actor_on)
-            ts.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            grads = [p.grad for p in params]
-            if self.mesh is not None:
-                average_gradients_(params, self.data_axis)
-            if self.mesh is None or self.model_axis.size == 1:
-                clip_by_global_norm_(grads, cfg.max_grad_norm)
-            else:       # the TP-aware norm, where the model axis splits parameters
-                clip_by_global_norm_(grads, cfg.max_grad_norm,
-                                     global_grad_norm(params, self.model_axis))
-            ts.optimizer.step()
-            ts.update_count += 1
-            sums += torch.stack([metrics[k].detach() for k in LOSS_METRICS])
-        return ts, dict(zip(LOSS_METRICS, (sums / per_step).unbind()))
+    def _minibatch(self, traj: Transition, advs: torch.Tensor, rets: torch.Tensor,
+                   idx: torch.Tensor) -> tuple:
+        """``_loss``'s batch at the time indices ``idx``."""
+        return tuple(x[idx] for x in (traj.obs, traj.raw_action, traj.logp, advs, rets,
+                                      traj.value))
 
-    # --------------------------------------------------------------- train step
-    def _train(self, ts: TrainState, carry: tuple, split: Optional[Dict[str, float]]):
-        """Rollout from ``carry`` (the arguments of ``_rollout`` after the
-        model), GAE and the update: ``(ts, carry, metrics)``."""
-        if split is not None:
-            self._sync()
-            t0 = time.perf_counter()
-        *carry, traj, last_value = self._rollout(ts.model, *carry)
-        if split is not None:
-            self._sync()
-            t1 = time.perf_counter()
-            split["rollout_s"] = t1 - t0
-        advs, rets = self._gae(traj, last_value)
-        ts, metrics = self._update(ts, traj, advs, rets)
-        if split is not None:
-            self._sync()
-            split["update_s"] = time.perf_counter() - t1
-        metrics.update(trajectory_metrics(traj))
-        return ts, tuple(carry), metrics
-
+    # ------------------------------------------------------------- entry points
     def train_step(self, ts: TrainState, env_state, obs: torch.Tensor,
                    split: Optional[Dict[str, float]] = None):
         """One rollout + PPO update: ``(ts, env_state, obs, metrics)``, the
         metrics 0-d tensors on the device. Given a ``split`` dict, it waits
         for the device before, between and after the two halves and stores
-        their seconds there as ``rollout_s`` and ``update_s`` (GAE included)."""
-        ts, (env_state, obs), metrics = self._train(ts, (env_state, obs), split)
-        return ts, env_state, obs, metrics
+        their seconds there as ``rollout_s`` and ``update_s`` (GAE included).
+        The returned env state and observation are the step's buffers
+        (``TrainStep``), which the next call overwrites."""
+        return self.eager(ts, env_state, obs, split)
+
+    def rollout(self, ts: TrainState, *carry):
+        """The rollout alone from ``carry`` (env state, observation [,
+        hidden state]): ``(*carry, traj, last_value)``, the step's buffers."""
+        carry, traj, last_value = self.eager.rollout(ts, carry)
+        return (*carry, traj, last_value)
+
+    def update(self, ts: TrainState, traj, advs: torch.Tensor, rets: torch.Tensor):
+        """The update alone, on a given trajectory, advantages and returns:
+        ``(ts, metrics)``, the loss metrics' means over the minibatches."""
+        return ts, self.eager.update(ts, traj, advs, rets)
 
     def jit_train_step(self, mesh=None):
         """The counterpart of the JAX package's ``jit_train_step()``:
         ``step(ts, env_state, obs, split=None) -> (ts, env_state, obs,
-        metrics)``, ``train_step``'s contract. On the card the rollout, GAE
-        and each minibatch update replay CUDA graphs (``_GraphedTrainStep``);
-        on the CPU it is ``train_step``. A ``mesh`` raises: ``distributed()``
-        stays eager. With traffic the env step is the segmented one of
-        ``VectorEnv.jit_step`` (the host reads the NPC width and steers the
-        exact mode's loops between the graphs).
+        metrics)``, ``train_step``'s contract. On the card it is a
+        ``TrainStep`` whose parts replay CUDA graphs; on the CPU it is
+        ``train_step``. A ``mesh`` raises: ``distributed()`` stays eager.
 
         The graphed step switches ``ts.optimizer`` to capturable Adam
         (utils/graphs.py::capturable_), whose float32 bias corrections agree
@@ -342,103 +301,149 @@ class PPOLearner:
                              "distributed() runs the step eagerly")
         if self.device.type != "cuda":
             return self.train_step
-        return _GraphedTrainStep(self)
+        return TrainStep(self, graphed=True)
 
 
-class _GraphedTrainStep:
-    """``PPOLearner.jit_train_step``'s step on the card: ``train_step`` as
-    CUDA graphs of one pool.
+class TrainStep:
+    """The train step, written once, its parts run by a segment runner
+    (utils/graphs.py): ``EAGER`` for ``train_step`` (every part a call),
+    a ``Segments`` of one graph pool for ``jit_train_step()`` on the card
+    (every part a CUDA graph replay). The parts:
 
-      - One rollout step, as segments of one ``Segments``: the forward,
-        the action sample and its log-prob (the ``act`` graph, whose
-        result is carried in static buffers), then the env's ``step_body``
-        with the segment runner, whose last segment also writes the
-        trajectory, the env state, the observation and the step index
-        (``_record``). Without traffic the env step is one segment; with
-        traffic its NPC width and the exact mode's loop rounds are read by
-        the host between its segments, as ``VectorEnv.jit_step`` does. The
-        step index is a device counter that the last segment advances, so
-        one set of graphs serves every t (one per t would capture
-        ``rollout_len`` copies of the same ~700 launches). The action noise
-        (``noise_fn``) and the env's draws are made eagerly before each
-        step, one step's at a time as ``_rollout`` draws them (the Philox
-        stream stays the same), and copied into static buffers.
-      - The last value: one forward.
-      - GAE and the trajectory's metrics.
-      - One minibatch update: the forward, ``backward``, the clip (decided
-        on the device) and Adam's step, the loss metrics summed into a
-        static buffer. The epoch's permutation stays an eager ``perm_fn``
-        draw; each minibatch's time indices are copied into a static index
-        buffer before its replay. The critic-warmup gate is decided on the
-        host from ``update_count``, so the update is captured once for each
-        gate it meets: with the actor loss on, and masked.
+      - one rollout step: the forward, the action sample and its log-prob
+        (``act``, carried), then the env's ``step_body`` on the runner,
+        whose last segment also writes the trajectory's row, the carry
+        (env state, observation [, hidden state]) and the step index
+        (``_record``). With traffic the host reads the NPC width and steers
+        the exact mode's loops between the env step's segments, as
+        ``VectorEnv.jit_step`` does. The step index is a device counter, so
+        one set of graphs serves every t. The action noise and the env's
+        draws are made eagerly before each step and copied into buffers;
+      - the last value; GAE and the trajectory's metrics;
+      - one minibatch update: the forward, ``backward``, on a mesh the
+        gradients' mean over the data ranks, the clip (decided on the
+        device; the TP-aware norm where the model axis splits parameters),
+        Adam's step and the loss metrics' sums. Each epoch's permutation is
+        an eager ``perm_fn`` draw, each minibatch's indices are copied into
+        a buffer, and the critic-warmup gate is decided on the host from
+        ``update_count``: the update is a part for each gate it meets.
 
-    The graphs and their buffers are bound to one model, optimizer and set
-    of shapes; another of any of them captures anew, as the JAX package's
-    train.py re-jits at each curriculum stage."""
+    The learner's hooks fill in the model family: ``_trajectory``,
+    ``_transition``, ``_gae``, ``_minibatch_indices``, ``_minibatch`` and
+    ``_loss``. The buffers (the last call's ``traj``, ``last_value``,
+    ``advs``, ``rets``, ...) and a graphed step's graphs are bound to one
+    model, optimizer and set of shapes; another of any of them binds anew,
+    as the JAX package's train.py re-jits at each curriculum stage."""
 
-    def __init__(self, learner: PPOLearner):
-        self.lrn = learner
+    def __init__(self, learner: PPOLearner, graphed: bool = False):
+        self.lrn, self.graphed = learner, graphed
+        self.run = EAGER
         self.key = None
 
-    def _bind(self, ts: TrainState, obs: torch.Tensor) -> None:
+    def _bind(self, ts: TrainState, tree, trajectory: Callable[[], tuple]) -> None:
+        """Bind to ``ts``; at another model, optimizer or shapes of ``tree``
+        the buffers are made anew, the trajectory's by ``trajectory()``."""
+        self.ts = ts
+        key = (id(ts.model), id(ts.optimizer), tuple(tuple(t.shape) for t in leaves(tree)))
+        if key == self.key:
+            return
         lrn, cfg = self.lrn, self.lrn.cfg
         T, mb = cfg.rollout_len, cfg.num_minibatches
         if T % mb:
             raise ValueError(f"rollout_len {T} is not a multiple of num_minibatches {mb}")
-        capturable_(ts.optimizer)
-        self.pool = GraphPool(lrn.device)
-        self.ts = ts
+        if self.graphed:
+            capturable_(ts.optimizer)
+            self.run = Segments.on(lrn.device, lrn.env.env.npc_stats)
+        self.key = key
         self.params = [p for p in ts.model.parameters() if p.requires_grad]
-        self.env_state = self.obs = self.draws = None      # made by their first stage()
-        b, n = obs.shape[:2]
+        self.traj = traj = trajectory()
+        dev = traj.reward.device
+        # made by their first stage()
+        self.env_state = self.obs = self.extra = self.draws = self.idx = None
+        self.noise = torch.empty_like(traj.raw_action[0])
+        self.t = torch.zeros((1,), dtype=torch.long, device=dev)
+        self.last_value = torch.empty_like(traj.value[0])
+        self.advs, self.rets = (torch.empty_like(traj.reward) for _ in range(2))
+        self.sums = torch.zeros(len(LOSS_METRICS), device=dev)
+        self.traj_metrics = torch.empty(len(TRAJ_METRICS), device=dev)
 
-        def buf(*shape, dtype=torch.float32):
-            return torch.empty((T, *shape), dtype=dtype, device=obs.device)
+    def __call__(self, ts: TrainState, env_state, obs: torch.Tensor,
+                 split: Optional[Dict[str, float]] = None):
+        """``PPOLearner.train_step``'s contract."""
+        ts, (env_state, obs), metrics = self.train(ts, (env_state, obs), split)
+        return ts, env_state, obs, metrics
 
-        self.traj = Transition(obs=buf(*obs.shape), raw_action=buf(b, n, 2), logp=buf(b, n),
-                               value=buf(b, n), reward=buf(b, n),
-                               ep_done=buf(b, dtype=torch.bool),
-                               agent_done=buf(b, n, dtype=torch.bool),
-                               status=buf(b, n, dtype=torch.int32))
-        self.noise = torch.empty((b, n, 2), device=obs.device)
-        self.t = torch.zeros((1,), dtype=torch.long, device=obs.device)
-        self.last_value = torch.empty((b, n), device=obs.device)
-        self.advs, self.rets = (torch.empty_like(self.traj.reward) for _ in range(2))
-        self.idx = torch.empty((T // mb,), dtype=torch.long, device=obs.device)
-        self.sums = torch.zeros(len(LOSS_METRICS), device=obs.device)
-        self.traj_metrics = torch.empty(len(TRAJ_METRICS), device=obs.device)
-        self.segments = Segments(self.pool, lrn.env.env.npc_stats)
-        self.value = Graph(self._last_value, self.pool)
-        self.gae = Graph(self._gae, self.pool)
-        self.updates = {}           # actor_on -> the minibatch update's graph
+    def train(self, ts: TrainState, carry: tuple, split: Optional[Dict[str, float]] = None):
+        """Rollout from ``carry`` (env state, observation [, hidden state]),
+        GAE and the update: ``(ts, carry, metrics)``; ``split`` as in
+        ``PPOLearner.train_step``."""
+        lrn = self.lrn
+        self._bind(ts, carry, lambda: lrn._trajectory(*carry[1:]))
+        if split is not None:
+            lrn._sync()
+            t0 = time.perf_counter()
+        self._rollout(carry)
+        if split is not None:
+            lrn._sync()
+            t1 = time.perf_counter()
+            split["rollout_s"] = t1 - t0
+        self.run(("gae",), self._gae)
+        values = torch.cat([self._learn(), self.traj_metrics])
+        if split is not None:
+            lrn._sync()
+            split["update_s"] = time.perf_counter() - t1
+        return ts, (self.env_state, self.obs, *self.extra), dict(
+            zip(LOSS_METRICS + TRAJ_METRICS, values.unbind()))
 
-    def _act(self, obs, noise):
-        mean, log_std, value = self.ts.model(obs)
+    def rollout(self, ts: TrainState, carry: tuple):
+        """The rollout alone: ``(carry, traj, last_value)``."""
+        self._bind(ts, carry, lambda: self.lrn._trajectory(*carry[1:]))
+        self._rollout(carry)
+        return (self.env_state, self.obs, *self.extra), self.traj, self.last_value
+
+    def update(self, ts: TrainState, traj, advs: torch.Tensor, rets: torch.Tensor) -> dict:
+        """The update alone on ``traj``, ``advs`` and ``rets``: the loss
+        metrics' means."""
+        self._bind(ts, traj, lambda: clone_tree(traj))
+        copy_tree_(self.traj, traj)
+        self.advs.copy_(advs)
+        self.rets.copy_(rets)
+        self.sums.zero_()
+        return dict(zip(LOSS_METRICS, self._learn().unbind()))
+
+    @torch.no_grad()
+    def _rollout(self, carry: tuple) -> None:
+        lrn = self.lrn
+        self.env_state, self.obs = stage(self.env_state, carry[0]), stage(self.obs, carry[1])
+        self.extra = stage(self.extra, tuple(carry[2:]))
+        self.t.zero_()
+        for _ in range(lrn.cfg.rollout_len):
+            self.noise.copy_(lrn.noise_fn(self.noise.shape))
+            self.draws = stage(self.draws, lrn.env.draws())
+            act = self.run.carry(("act",), self._act, self.obs, self.noise, *self.extra)
+            lrn.env.step_body(self.env_state, act[0], self.draws, run=self.run,
+                              finish=functools.partial(self._record, act))
+        self.run(("last_value",), self._last_value)
+
+    def _act(self, obs, noise, *extra):
+        mean, log_std, value, *carry = self.ts.model(obs, *extra)
         action, raw = sample_action(mean, log_std, noise)
         logp, _ = logp_and_entropy(mean, log_std, raw)
-        return action, raw, logp, value
+        return (action, raw, logp, value, *carry)
 
     def _record(self, act, env_state, out):
         """The env step's result written into the static buffers, inside
         its last segment."""
-        _, raw, logp, value = act
-        for dst, src in zip(self.traj, (self.obs, raw, logp, value, out.reward,
-                                        out.terminated | out.truncated, out.done, out.status)):
+        row, extra = self.lrn._transition(act, out, self.obs, *self.extra)
+        for dst, src in zip(self.traj, row):
             dst.index_copy_(0, self.t, src[None])
         copy_tree_(self.env_state, env_state)
         self.obs.copy_(out.obs)
+        copy_tree_(self.extra, extra)
         self.t += 1
 
-    @torch.no_grad()
-    def _rollout_step(self):
-        act = self.segments.carry(("act",), self._act, self.obs, self.noise)
-        self.lrn.env.step_body(self.env_state, act[0], self.draws, run=self.segments,
-                               finish=functools.partial(self._record, act))
-
-    @torch.no_grad()
     def _last_value(self):
-        self.last_value.copy_(self.ts.model(self.obs)[2])
+        self.last_value.copy_(self.ts.model(self.obs, *self.extra)[2])
 
     @torch.no_grad()
     def _gae(self):
@@ -448,68 +453,49 @@ class _GraphedTrainStep:
         self.traj_metrics.copy_(torch.stack(list(trajectory_metrics(self.traj).values())))
         self.sums.zero_()
 
+    def _learn(self) -> torch.Tensor:
+        """``update_epochs`` epochs of minibatch updates: the loss metrics'
+        means."""
+        lrn, ts, cfg = self.lrn, self.ts, self.lrn.cfg
+        per_step = cfg.update_epochs * cfg.num_minibatches
+        for _ in range(cfg.update_epochs):
+            for idx in lrn._minibatch_indices():
+                self.idx = stage(self.idx, idx)
+                on = ts.update_count >= cfg.critic_warmup * per_step
+                self.run((f"update_actor_{'on' if on else 'off'}",),
+                         functools.partial(self._update, 1.0 if on else 0.0))
+                ts.update_count += 1
+        return self.sums / per_step
+
     def _update(self, actor_on: float):
-        lrn, ts = self.lrn, self.ts
-        traj = self.traj
-        data = (traj.obs, traj.raw_action, traj.logp, self.advs, self.rets, traj.value)
-        loss, metrics = lrn._loss(ts.model, tuple(x[self.idx] for x in data), actor_on)
+        lrn, ts, params = self.lrn, self.ts, self.params
+        # the batch is not kept past the loss: its observations (a quarter of
+        # the trajectory's) are free again for the backward pass
+        loss, metrics = lrn._loss(ts.model, lrn._minibatch(self.traj, self.advs, self.rets,
+                                                           self.idx), actor_on)
         ts.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in self.params], lrn.cfg.max_grad_norm)
+        if lrn.mesh is not None:
+            average_gradients_(params, lrn.data_axis)
+        grads = [p.grad for p in params]
+        if lrn.mesh is None or lrn.model_axis.size == 1:
+            clip_by_global_norm_(grads, lrn.cfg.max_grad_norm)
+        else:       # the TP-aware norm, where the model axis splits parameters
+            clip_by_global_norm_(grads, lrn.cfg.max_grad_norm,
+                                 global_grad_norm(params, lrn.model_axis))
         ts.optimizer.step()
         self.sums += torch.stack([metrics[k].detach() for k in LOSS_METRICS])
 
-    def __call__(self, ts: TrainState, env_state, obs: torch.Tensor,
-                 split: Optional[Dict[str, float]] = None):
-        lrn, cfg = self.lrn, self.lrn.cfg
-        key = (id(ts.model), id(ts.optimizer), tuple(obs.shape),
-               tuple(tuple(t.shape) for t in leaves(env_state)))
-        if key != self.key:
-            self._bind(ts, obs)
-            self.key = key
-        if split is not None:
-            lrn._sync()
-            t0 = time.perf_counter()
-        self.env_state, self.obs = stage(self.env_state, env_state), stage(self.obs, obs)
-        self.t.zero_()
-        for _ in range(cfg.rollout_len):
-            self.noise.copy_(lrn.noise_fn(self.noise.shape))
-            self.draws = stage(self.draws, lrn.env.draws())
-            self._rollout_step()
-        self.value()
-        if split is not None:
-            lrn._sync()
-            t1 = time.perf_counter()
-            split["rollout_s"] = t1 - t0
-        self.gae()
-        T, mb = cfg.rollout_len, cfg.num_minibatches
-        size, per_step = T // mb, cfg.update_epochs * mb
-        for _ in range(cfg.update_epochs):
-            perm = lrn.perm_fn(T)
-            for i in range(mb):
-                self.idx.copy_(perm[i * size:(i + 1) * size])
-                actor_on = 1.0 if ts.update_count >= cfg.critic_warmup * per_step else 0.0
-                graph = self.updates.get(actor_on)
-                if graph is None:
-                    graph = self.updates[actor_on] = Graph(
-                        lambda a=actor_on: self._update(a), self.pool)
-                graph()
-                ts.update_count += 1
-        values = torch.cat([self.sums / per_step, self.traj_metrics])
-        if split is not None:
-            lrn._sync()
-            split["update_s"] = time.perf_counter() - t1
-        return ts, self.env_state, self.obs, dict(zip(LOSS_METRICS + TRAJ_METRICS,
-                                                      values.unbind()))
-
     @property
     def graphs(self) -> dict:
-        """The bound graphs by name, for their launch counts and capture times;
-        the rollout step's by segment key."""
-        out = {"rollout " + " ".join(map(str, k)): g for k, g in self.segments.graphs.items()}
-        out.update(last_value=self.value, gae=self.gae)
-        out.update({f"update_actor_{'on' if a else 'off'}": g for a, g in self.updates.items()})
-        return out
+        """The bound graphs by name (a graphed step's), for their launch
+        counts and capture times: the learner's parts by theirs, the rollout
+        step's segments as ``rollout <key>``."""
+        return {k[0] if k[0] in _PARTS else "rollout " + " ".join(map(str, k)): g
+                for k, g in getattr(self.run, "graphs", {}).items()}
+
+
+_PARTS = ("last_value", "gae", "update_actor_on", "update_actor_off")
 
 
 def read_metrics(metrics: Dict[str, torch.Tensor], mesh=None) -> Dict[str, float]:

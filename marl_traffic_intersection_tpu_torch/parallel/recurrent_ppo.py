@@ -1,9 +1,10 @@
 """Truncated-BPTT PPO for the recurrent (GRU) model family.
 
 Counterpart of marl_traffic_intersection_tpu/parallel/recurrent_ppo.py, run
-eagerly on one device. It differs from the feedforward learner (ppo.py) in
-three places, and takes GAE, the clipped losses, optax's global-norm clip,
-Adam and ``critic_warmup`` from it:
+eagerly. It differs from the feedforward learner (ppo.py) in three places,
+each made by overriding hooks of its one ``TrainStep``, and takes GAE, the
+clipped losses, optax's global-norm clip, Adam and ``critic_warmup`` from
+it:
 
   - the rollout carries the GRU hidden state and zeroes it at agent life
     boundaries (``out.done | (terminated | truncated)[:, None]``: crash
@@ -28,7 +29,6 @@ from typing import Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..models.actor_critic import logp_and_entropy, sample_action
 from .ppo import PPOLearner, TrainState
 
 
@@ -56,32 +56,19 @@ class RecurrentPPOLearner(PPOLearner):
                                          device=self.device)
 
     # ------------------------------------------------------------------ rollout
-    @torch.no_grad()
-    def _rollout(self, model: nn.Module, env_state, obs: torch.Tensor, h: torch.Tensor):
-        T = self.cfg.rollout_len
-        b, n = obs.shape[:2]
+    def _trajectory(self, obs: torch.Tensor, h: torch.Tensor) -> RecTransition:
+        ff = super()._trajectory(obs)
+        return RecTransition(**ff._asdict(), done=torch.empty_like(ff.agent_done),
+                             h_in=torch.empty((self.cfg.rollout_len, *h.shape), device=h.device))
 
-        def buf(*shape, dtype=torch.float32):
-            return torch.empty((T, *shape), dtype=dtype, device=obs.device)
-
-        traj = RecTransition(obs=buf(*obs.shape), h_in=buf(*h.shape), raw_action=buf(b, n, 2),
-                             logp=buf(b, n), value=buf(b, n), reward=buf(b, n),
-                             ep_done=buf(b, dtype=torch.bool),
-                             agent_done=buf(b, n, dtype=torch.bool),
-                             done=buf(b, n, dtype=torch.bool), status=buf(b, n, dtype=torch.int32))
-        for t in range(T):
-            mean, log_std, value, h2 = model(obs, h)
-            action, raw = sample_action(mean, log_std, self.noise_fn(mean.shape))
-            logp, _ = logp_and_entropy(mean, log_std, raw)
-            env_state, out = self.env.step(env_state, action)
-            ep_done = out.terminated | out.truncated
-            done = out.done | ep_done[:, None]
-            for dst, src in zip(traj, (obs, h, raw, logp, value, out.reward, ep_done, out.done,
-                                       done, out.status)):
-                dst[t] = src
-            obs, h = out.obs, _carry_on(h2, done)
-        last_value = model(obs, h)[2]
-        return env_state, obs, h, traj, last_value
+    def _transition(self, act, out, obs: torch.Tensor, h: torch.Tensor):
+        """The row stores the pre-step hidden state and the life boundary;
+        the hidden state carried on is zeroed there."""
+        _, raw, logp, value, h2 = act
+        ep_done = out.terminated | out.truncated
+        done = out.done | ep_done[:, None]
+        return (obs, h, raw, logp, value, out.reward, ep_done, out.done, done,
+                out.status), (_carry_on(h2, done),)
 
     # --------------------------------------------------------------- chunk loss
     def _loss(self, model: nn.Module, batch, actor_on: float = 1.0):
@@ -96,12 +83,18 @@ class RecurrentPPOLearner(PPOLearner):
                               raw, old_logp, adv, ret, old_value, actor_on)
 
     # ------------------------------------------------------------------- update
-    def _minibatches(self, traj: RecTransition, advs: torch.Tensor, rets: torch.Tensor):
-        """Per epoch, the ``num_minibatches`` contiguous time chunks in a
-        permuted order; each batch carries its chunk's entry hidden state."""
-        cfg = self.cfg
-        mb = cfg.num_minibatches
-        chunk = cfg.rollout_len // mb
+    def _minibatch_indices(self) -> list:
+        """One epoch's minibatches: the ``num_minibatches`` contiguous time
+        chunks in a permuted order, each a device index (no host read)."""
+        mb = self.cfg.num_minibatches
+        perm = self.perm_fn(mb)             # shuffle the chunk order only
+        return [perm[i:i + 1] for i in range(mb)]
+
+    def _minibatch(self, traj: RecTransition, advs: torch.Tensor, rets: torch.Tensor,
+                   idx: torch.Tensor) -> tuple:
+        """The chunk ``idx`` with its entry hidden state."""
+        mb = self.cfg.num_minibatches
+        chunk = self.cfg.rollout_len // mb
 
         def chunks(x):          # (T, ...) -> (mb, chunk, ...)
             return x.reshape(mb, chunk, *x.shape[1:])
@@ -109,18 +102,14 @@ class RecurrentPPOLearner(PPOLearner):
         data = (chunks(traj.obs), traj.h_in[::chunk], chunks(traj.done),
                 chunks(traj.raw_action), chunks(traj.logp), chunks(advs), chunks(rets),
                 chunks(traj.value))
-        for _ in range(cfg.update_epochs):
-            perm = self.perm_fn(mb)         # shuffle the chunk order only
-            for i in range(mb):
-                idx = perm[i:i + 1]         # a device index: no read on the host
-                yield tuple(x[idx][0] for x in data)
+        return tuple(x[idx][0] for x in data)
 
     # --------------------------------------------------------------- train step
     def train_step(self, ts: TrainState, env_state, obs: torch.Tensor, h: torch.Tensor,
                    split: Optional[Dict[str, float]] = None):
         """One rollout + truncated-BPTT PPO update: ``(ts, env_state, obs, h,
         metrics)``; ``split`` as in ``PPOLearner.train_step``."""
-        ts, (env_state, obs, h), metrics = self._train(ts, (env_state, obs, h), split)
+        ts, (env_state, obs, h), metrics = self.eager.train(ts, (env_state, obs, h), split)
         return ts, env_state, obs, h, metrics
 
     def jit_train_step(self, mesh=None):

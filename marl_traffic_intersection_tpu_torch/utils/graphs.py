@@ -24,6 +24,12 @@ replay raises: there is no eager fallback on the card. What ``fn`` returns
 comes back from each call: the eager tensors on the first, the graph's own
 output tensors after, overwritten by the next replay.
 
+Python's cyclic collector is held off while a graph is captured. A graph
+held in a dead reference cycle (a step's graphs hold its bound methods) is
+destroyed when the collector runs, and CUDA forbids destroying one while a
+stream captures: the capture would fail. torch no longer collects before a
+capture, so without the hold a collection could fall inside one.
+
 The kernel wrappers count their launches in ``native.LAUNCHES`` when Python
 calls them, which a replay does not. So a capture takes back the counts its
 calls added, keeps them as the graph's ``launches``, and each replay adds
@@ -48,16 +54,24 @@ was captured on (another input raises). The graphs of all keys share one
 pool and replay in another order than they were captured in, which is
 safe because each one's outputs stay held.
 
-A host read between segments (``core.npc.host_read``) drains the stream,
-and the device then idles until the next replay's graph starts. So a
-``Segments`` handed a counter (the env's ``npc_stats``) keeps a span per
-read: the read stamps the host's clock (``after_read(cause)``) and the
-next replay, when it returns, adds the seconds since the stamp to
-``stats["read_idle_s.<cause>"]``. A key's first call, which warms and
-captures, drops the open span. While a torch profiler records, each call
-of a key is the range ``mti.replay.<key>`` on its timeline (on the host
-alone, ``core.npc.marked``), beside the reads' ``mti.read.<cause>`` and
-the kernels the replay runs.
+``Segments`` is the graphed one of two segment runners, the objects that
+every step of the port is written against (the env step, the NPC update's
+loops, the learner's train step): ``run(key, fn, *inputs)`` runs a device
+segment, ``run.carry(key, fn, *inputs)`` runs one whose result the next
+segment reads, and ``host_read(run, cause, read)`` reads the device between
+segments. ``EAGER``, the other, calls each function; so one body, run by
+either, makes the same calls, reads and loop rounds.
+
+A host read between segments (``host_read``) drains the stream, and the
+device then idles until the next replay's graph starts. So a ``Segments``
+handed a counter (the env's ``npc_stats``) keeps a span per read: the read
+stamps the host's clock (``after_read(cause)``) and the next replay, when
+it returns, adds the seconds since the stamp to
+``stats["read_idle_s.<cause>"]`` (``IDLE`` + the cause; ``stat_counts``
+leaves those out). A key's first call, which warms and captures, drops the
+open span. While a torch profiler records, each call of a key is the range
+``mti.replay.<key>`` on its timeline (on the host alone, ``marked``),
+beside the reads' ``mti.read.<cause>`` and the kernels the replay runs.
 
 ``capturable_(optimizer)`` switches Adam to keep its step count on the
 parameters' device (``capturable=True``), which a captured step needs.
@@ -65,13 +79,64 @@ parameters' device (``capturable=True``), which a captured step needs.
 from __future__ import annotations
 
 import collections
+import gc
 import time
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import _profiler_enabled as profiling
 
-from ..core.npc import IDLE, marked, profiling
 from ..ops import native
+
+IDLE = "read_idle_s."           # npc_stats' summed seconds: IDLE + a read's cause
+
+
+def stat_counts(stats) -> dict:
+    """The counts of an ``npc_stats`` counter: every key but the summed
+    seconds (``read_idle_s.<cause>``), which only a graphed run keeps."""
+    return {k: v for k, v in stats.items() if not k.startswith(IDLE)}
+
+
+def marked(name: str):
+    """The range ``name`` on a recording torch profiler's timeline (call it
+    where ``profiling()`` holds). It marks the host alone: a
+    ``record_function`` range (a user scope) also gets a device-side copy
+    spanning the kernels launched inside it, which a trace's reduction would
+    count as device work; this record (a function scope) gets none."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def host_read(run, cause: str, read):
+    """``read()``, a read of the device by the host, which waits for the
+    stream to drain. While a torch profiler records, the read is the range
+    ``mti.read.<cause>`` on its timeline. Then the segment runner ``run`` is
+    told (``run.after_read(cause)``): the graphed one times the device's
+    idle from here to its next replay, the eager one does nothing."""
+    if profiling():
+        with marked("mti.read." + cause):
+            value = read()
+    else:
+        value = read()
+    run.after_read(cause)
+    return value
+
+
+class _Eager:
+    """The segment runner of the eager code: ``run(key, fn, *inputs)`` and
+    ``run.carry(key, fn, *inputs)`` are ``fn(*inputs)``, and
+    ``run.after_read(cause)`` (``host_read``) does nothing (``Segments`` is
+    the graphed one)."""
+
+    def __call__(self, key, fn, *inputs):
+        return fn(*inputs)
+
+    carry = __call__
+
+    def after_read(self, cause: str) -> None:
+        pass
+
+
+EAGER = _Eager()
 
 
 class GraphPool:
@@ -116,10 +181,14 @@ class Graph:
         before = collections.Counter(native.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        collecting = gc.isenabled()
+        gc.disable()        # see the module docstring
         try:
             with torch.cuda.graph(graph, pool=self.pool.handle, stream=side):
                 self.out = self.fn()
         finally:
+            if collecting:
+                gc.enable()
             # the capture launched nothing: its counts become the replays'
             self.launches = collections.Counter(native.LAUNCHES)
             self.launches.subtract(before)
@@ -148,6 +217,11 @@ class Segments:
         self._inputs: dict = {}
         self._carried: dict = {}
         self._read = None           # the open span: (its stats key, the clock at the read)
+
+    @classmethod
+    def on(cls, device, stats: Optional[collections.Counter] = None) -> "Segments":
+        """Segments of a new ``GraphPool`` on ``device``."""
+        return cls(GraphPool(device), stats)
 
     def after_read(self, cause: str) -> None:
         """The host has just read the device: opens a span of ``cause``."""

@@ -14,7 +14,7 @@ from marl_traffic_intersection_tpu_torch.core.constants import STATUS_ALIVE, STA
 from marl_traffic_intersection_tpu_torch.core.env import EgoTick, ego_step_ref
 from marl_traffic_intersection_tpu_torch.core.lidar import lidar_scan_ref
 from marl_traffic_intersection_tpu_torch.core import env as env_module, npc
-from marl_traffic_intersection_tpu_torch.core.npc import move_ref, stat_counts
+from marl_traffic_intersection_tpu_torch.core.npc import move_ref
 from marl_traffic_intersection_tpu_torch.ops import libm, native
 from marl_traffic_intersection_tpu_torch.ops import ego_step_cases
 from marl_traffic_intersection_tpu_torch.ops.ego_step_cuda import ego_step
@@ -22,6 +22,7 @@ from marl_traffic_intersection_tpu_torch.ops.lidar_cases import edge_inputs, fuz
 from marl_traffic_intersection_tpu_torch.ops.lidar_cuda import lidar_scan
 from marl_traffic_intersection_tpu_torch.ops.npc_move_cases import CASES, case_args, on
 from marl_traffic_intersection_tpu_torch.ops.npc_move_cuda import npc_move
+from marl_traffic_intersection_tpu_torch.utils.graphs import stat_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -452,6 +453,24 @@ def test_a_capture_that_fails_raises(card):
     assert graph.graph is None
 
 
+def test_a_capture_holds_off_the_cyclic_collector(card):
+    """The warm-up runs with Python's cyclic collector on, the capture with
+    it off, and it is on again after: a collection inside a capture could
+    destroy a dead graph, which CUDA forbids while a stream captures."""
+    import gc
+
+    from marl_traffic_intersection_tpu_torch.utils.graphs import Graph, GraphPool
+    x, seen = torch.zeros(4, device=card), []
+
+    def fn():
+        seen.append(gc.isenabled())
+        return x + 1
+    graph = Graph(fn, GraphPool(card))
+    graph()
+    graph()
+    assert seen == [True, False] and gc.isenabled() and graph.replays == 1
+
+
 def _packed_fleet(B, M, dev, rng, grid=False):
     """An NPC pool with 20 NPCs in env 0 (the full width of 32 slots) and a
     pair at one pose in env 1. Packed about the centre, two of env 0's at
@@ -575,7 +594,7 @@ def test_graphed_traffic_step_times_the_device_idle_after_each_read(card):
     the counts of the two runs are equal."""
     import time
 
-    from marl_traffic_intersection_tpu_torch.core.npc import IDLE
+    from marl_traffic_intersection_tpu_torch.utils.graphs import IDLE
 
     runs = []
     for graphed in (False, True):

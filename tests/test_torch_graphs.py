@@ -30,7 +30,6 @@ import torch
 
 from marl_traffic_intersection_tpu.envs.vector import VectorEnv as JaxVectorEnv
 from marl_traffic_intersection_tpu_torch import EnvState, VectorEnv
-from marl_traffic_intersection_tpu_torch.core.npc import stat_counts
 from marl_traffic_intersection_tpu_torch.envs import vector as vector_module
 from marl_traffic_intersection_tpu_torch.envs.normalize import RewardNormVecEnv
 from marl_traffic_intersection_tpu_torch.models import make_model
@@ -39,6 +38,7 @@ from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearn
 from marl_traffic_intersection_tpu_torch.parallel.recurrent_ppo import RecurrentPPOLearner
 from marl_traffic_intersection_tpu_torch.utils import graphs
 from marl_traffic_intersection_tpu_torch.utils.checkpoint import load_policy, load_sac
+from marl_traffic_intersection_tpu_torch.utils.graphs import stat_counts
 
 from ._torch_port import (EXACT_COMPILE, _jax_reset_state, assert_bits, compare_runs, jax_env,
                           port_env)
@@ -244,13 +244,12 @@ class _Rerun:
 
 @pytest.fixture
 def rerun_graphs(monkeypatch):
-    """Every graph, the segments' (``Segments``, which makes its graphs
-    through ``graphs.Graph``) and the learner's, replaced by a ``_Rerun``;
+    """Every graph, the env step's and the learner's (each made by a
+    ``Segments`` through ``graphs.Graph``), replaced by a ``_Rerun``;
     yields the list of those made."""
     monkeypatch.setattr(_Rerun, "made", [])
-    for module in (graphs, ppo):
-        monkeypatch.setattr(module, "Graph", _Rerun)
-        monkeypatch.setattr(module, "GraphPool", _Pool)
+    monkeypatch.setattr(graphs, "Graph", _Rerun)
+    monkeypatch.setattr(graphs, "GraphPool", _Pool)
     # capturable Adam runs on the card only; on the CPU the eager Adam
     monkeypatch.setattr(ppo, "capturable_", lambda opt, on=True: opt)
     yield _Rerun.made
@@ -299,7 +298,7 @@ def test_graphed_train_step_buffers_equal_train_step(rerun_graphs, norm):
         return _learner(seed=2, norm=norm, critic_warmup=1, update_epochs=2,
                         num_minibatches=2)
 
-    eager, graphed = _train_pair(make, 3, lambda lrn: ppo._GraphedTrainStep(lrn))
+    eager, graphed = _train_pair(make, 3, lambda lrn: ppo.TrainStep(lrn, graphed=True))
     _assert_train_runs(eager, graphed)
 
 

@@ -37,13 +37,14 @@ from marl_traffic_intersection_tpu.core.constants import DT_DEFAULT
 from marl_traffic_intersection_tpu.core.npc import spawn_decision
 from marl_traffic_intersection_tpu.envs.vector import VectorEnv as JaxVectorEnv
 from marl_traffic_intersection_tpu_torch import VectorEnv
-from marl_traffic_intersection_tpu_torch.core.npc import NpcState, stat_counts
+from marl_traffic_intersection_tpu_torch.core.npc import NpcState
 from marl_traffic_intersection_tpu_torch.envs import vector as vector_module
 from marl_traffic_intersection_tpu_torch.envs.normalize import RewardNormVecEnv
 from marl_traffic_intersection_tpu_torch.models import make_model
 from marl_traffic_intersection_tpu_torch.parallel import ppo
 from marl_traffic_intersection_tpu_torch.parallel.ppo import PPOConfig, PPOLearner
 from marl_traffic_intersection_tpu_torch.utils import graphs
+from marl_traffic_intersection_tpu_torch.utils.graphs import stat_counts
 
 from ._torch_port import (_jax_reset_state, assert_npc_bits, compare_runs,
                           ieee_constant_division, jax_env, port_env)
@@ -205,13 +206,13 @@ def test_graphed_train_step_with_traffic_equals_train_step(rerun_graphs, norm):
     steps = []
 
     def graphed_step(lrn):
-        steps.append(ppo._GraphedTrainStep(lrn))
+        steps.append(ppo.TrainStep(lrn, graphed=True))
         return steps[-1]
     eager, graphed = _train_pair(make, 2, graphed_step)
     _assert_train_runs(eager, graphed)
     e, g = (stat_counts(lrn.env.env.npc_stats) for lrn in learners)
     assert e == g and e["tier_reads"] == 16, (e, g)
-    keys = steps[0].segments.graphs
+    keys = steps[0].run.graphs
     assert ("act",) in keys and any(k[1:] == ("npc begin",) for k in keys), sorted(keys, key=str)
     lrn = make()
     assert lrn.jit_train_step() == lrn.train_step

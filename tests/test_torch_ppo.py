@@ -233,7 +233,7 @@ def test_update_replays_jax(dtype, max_grad_norm, monkeypatch):
     monkeypatch.setattr(ppo_mod, "clip_by_global_norm_", spy)
     traj = _port_traj(z, old_value, np.zeros((T, B), bool), z.astype(bool), obs=obs,
                       raw_action=raw, logp=old_logp)
-    ts, m = learner._update(ts, traj, torch.from_numpy(adv), torch.from_numpy(ret))
+    ts, m = learner.update(ts, traj, torch.from_numpy(adv), torch.from_numpy(ret))
     assert not perms and ts.update_count == int(jts.update_count) == 4
     assert len(norms) == 4 and all((n > max_grad_norm) == (max_grad_norm < 1) for n in norms)
     tol = UPDATE_TOL[dtype]
@@ -265,7 +265,7 @@ def test_rollout_is_a_hand_loop_of_vector_env_steps():
     learner = _learner(cfg, noise_fn=lambda shape: queue.pop(0))
     ts = learner.init()
     state, obs = learner.env.reset()
-    _, obs_end, traj, last_value = learner._rollout(ts.model, state, obs)
+    _, obs_end, traj, last_value = learner.rollout(ts, state, obs)
 
     venv = VectorEnv(port_env(2), num_envs=8, seed=0)
     s, o = venv.reset()

@@ -1,7 +1,7 @@
 """The host's device reads timed on the segment runner, and the exact NPC
 update's per-tick round histogram, on the CPU.
 
-A read (``core.npc.host_read``) opens a span on the graphed runner
+A read (``utils.graphs.host_read``) opens a span on the graphed runner
 (``utils/graphs.py::Segments``) and the next replay closes it into
 ``npc_stats["read_idle_s.<cause>"]``; the eager runner keeps no span. Here
 the graphs are re-runs of their functions (tests/test_torch_graphs.py's
@@ -18,9 +18,9 @@ import torch
 
 from marl_traffic_intersection_tpu_torch import VectorEnv
 from marl_traffic_intersection_tpu_torch.core.constants import DT_DEFAULT
-from marl_traffic_intersection_tpu_torch.core.npc import EAGER, IDLE, host_read, stat_counts
 from marl_traffic_intersection_tpu_torch.envs import vector as vector_module
 from marl_traffic_intersection_tpu_torch.utils import graphs
+from marl_traffic_intersection_tpu_torch.utils.graphs import EAGER, IDLE, host_read, stat_counts
 
 from ._torch_port import port_env
 from .test_torch_graphs import _Pool, rerun_graphs  # noqa: F401 (a fixture)

@@ -106,11 +106,12 @@ def test_chunk_replay_reproduces_the_rollout():
                        max_steps=5)
     ts = learner.init()
     state, obs = learner.env.reset()
-    _, _, _, traj, _ = learner._rollout(ts.model, state, obs, learner.initial_hidden())
+    _, _, _, traj, _ = learner.rollout(ts, state, obs, learner.initial_hidden())
     assert traj.done.any()
     learner.perm_fn = lambda n: torch.arange(n)
     advs = rets = torch.zeros_like(traj.value)
-    for c, (o, h0, done, raw, *_) in enumerate(learner._minibatches(traj, advs, rets)):
+    batches = (learner._minibatch(traj, advs, rets, idx) for idx in learner._minibatch_indices())
+    for c, (o, h0, done, raw, *_) in enumerate(batches):
         h = h0
         with torch.no_grad():
             for t in range(o.shape[0]):
@@ -130,7 +131,7 @@ def test_hidden_state_resets_at_done():
                        num_envs=2, agents=1, max_steps=3)
     ts = learner.init()
     state, obs = learner.env.reset()
-    _, _, h_end, traj, _ = learner._rollout(ts.model, state, obs, learner.initial_hidden())
+    _, _, h_end, traj, _ = learner.rollout(ts, state, obs, learner.initial_hidden())
     assert traj.done[2].all() and traj.done[5].all()
     assert not traj.h_in[3].any() and not h_end.any()
     assert traj.h_in[1].abs().sum() > 0 and traj.h_in[4].abs().sum() > 0
@@ -173,7 +174,7 @@ def test_update_replays_jax(dtype):
     ptraj = RecTransition(obs=t(obs), h_in=t(h_in), raw_action=t(raw), logp=t(old_logp),
                           value=t(old_value), reward=t(z), ep_done=t(np.zeros((T, B), bool)),
                           agent_done=t(done), done=t(done), status=t(z.astype(np.int32)))
-    ts, m = learner._update(ts, ptraj, t(adv), t(ret))
+    ts, m = learner.update(ts, ptraj, t(adv), t(ret))
     assert not perms and ts.update_count == int(jts.update_count) == 4
     tol = UPDATE_TOL[dtype]
     for k_ in jm:

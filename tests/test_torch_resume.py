@@ -216,7 +216,7 @@ def test_resumed_mlp_update_replays_the_jax_learner():
     ts = TrainState(st.model, st.optimizer, 0)
     traj = _port_traj(z, old_value, np.zeros((T, B), bool), z.astype(bool), obs=obs,
                       raw_action=raw, logp=old_logp)
-    ts, m = learner._update(ts, traj, torch.from_numpy(adv), torch.from_numpy(ret))
+    ts, m = learner.update(ts, traj, torch.from_numpy(adv), torch.from_numpy(ret))
     assert not perms and ts.update_count == int(jts.update_count) == 4
     _hold("mlp", ts, m, jts, jm, count, before)
 
@@ -260,7 +260,7 @@ def test_resumed_gru_update_replays_the_jax_learner():
     ptraj = RecTransition(obs=t(obs), h_in=t(h_in), raw_action=t(raw), logp=t(old_logp),
                           value=t(old_value), reward=t(z), ep_done=t(np.zeros((T, B), bool)),
                           agent_done=t(done), done=t(done), status=t(z.astype(np.int32)))
-    ts, m = learner._update(ts, ptraj, t(adv), t(ret))
+    ts, m = learner.update(ts, ptraj, t(adv), t(ret))
     assert not perms and ts.update_count == int(jts.update_count) == 4
     _hold("gru", ts, m, jts, jm, count, before)
 
